@@ -1,0 +1,16 @@
+"""Robust estimation: fixed-shape vectorized RANSAC / MAGSAC over batched solvers."""
+
+from sks_tpu_torch.robust.api import (  # noqa: F401
+    find_homography,
+    get_affine_transform,
+    get_perspective_transform,
+)
+from sks_tpu_torch.robust.ransac import (  # noqa: F401
+    RansacConfig,
+    RansacResult,
+    ransac_homography,
+    ransac_homography_adaptive,
+    ransac_homography_fused,
+    sample_minimal_sets,
+    score_hypotheses,
+)
