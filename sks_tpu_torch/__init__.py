@@ -5,12 +5,13 @@ names and call shapes (4-point solvers take ``(..., 4, 2)`` pairs and return
 ``(..., 3, 3)``; ``find_homography`` returns ``(H, mask)``), written as plain
 functions on torch tensors.  The device follows the input tensors; randomness
 comes from explicit ``torch.Generator`` objects.  On CUDA tensors the hot path
-runs hand-written Hopper kernels (``sks_tpu_torch.kernels.aca_cuda``); on CPU
-tensors each kernel's plain PyTorch version runs instead.
+runs hand-written Hopper kernels (``sks_tpu_torch.kernels``); on CPU tensors
+each kernel's plain PyTorch version runs instead.
 
 The port covers the robust homography fit (``find_homography`` with its fused
-ACA solve+score kernel) and the batched ACA solve; the rest of ``sks_tpu``
-follows slice by slice (see ROADMAP.md).
+ACA solve+score kernel) and the batched 4-point solve of all six solvers of
+the paper's Table 8 (ACA, SKS, RHO-GE, GPT-LU, HO, NDLT), each with its
+kernel; the rest of ``sks_tpu`` follows slice by slice (see ROADMAP.md).
 """
 
 import os as _os
@@ -33,8 +34,14 @@ from sks_tpu_torch.ops import (  # noqa: E402
     SOLVERS_H,
     aca,
     aca_h,
+    gpt_lu,
+    ho,
+    ho_h,
     ndlt,
     ndlt_h,
+    rho_ge,
+    sks,
+    sks_h,
     solve_h,
 )
 from sks_tpu_torch.robust.api import (  # noqa: E402
@@ -53,6 +60,12 @@ __all__ = [
     "SOLVERS_H",
     "aca",
     "aca_h",
+    "sks",
+    "sks_h",
+    "rho_ge",
+    "gpt_lu",
+    "ho",
+    "ho_h",
     "ndlt",
     "ndlt_h",
     "solve_h",

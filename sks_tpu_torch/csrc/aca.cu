@@ -6,33 +6,18 @@
 //                    (body _solve_score_kernel): ACA solve + adjugate +
 //                    symmetric-transfer RANSAC scoring against all N points.
 //
-// Layout: plain component-major SoA.  A batch of B minimal sets is (8, B):
-// component k of hypothesis i at ptr[k * B + i]; the output of K1 is (9, B).
-// There is no 128-lane padding: every kernel masks the ragged edge itself.
-// Storage is float32 or bfloat16; arithmetic is always float32.
-//
-// Build flags (sks_tpu_torch/kernels/_build.py): -O3 -fmad=false, and no
-// --use_fast_math.  -fmad=false makes every product and sum round on its own,
-// exactly as the plain PyTorch version (one elementwise op at a time) does, so
-// the kernels and their plain versions agree bit for bit.  The scoring relies
-// on IEEE division and on NaN < t2 being false, which fast math would break.
+// Layout and build flags: see soa.cuh.  -fmad=false makes every product and
+// sum round on its own, exactly as the plain PyTorch version (one
+// elementwise op at a time) does, so the kernels and their plain versions
+// agree bit for bit.  The scoring relies on IEEE division and on NaN < t2
+// being false, which fast math would break.
 //
 // Each exported function launches on the given stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "soa.cuh"
 
 namespace {
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as Tensor.to(bfloat16)
-}
 
 // sks_tpu_torch/ops/aca.py::aca_core, line by line, in the same order.
 // s = (m1x, m1y, n1x, n1y, p1x, p1y, q1x, q1y); t likewise for plane 2.
@@ -92,29 +77,20 @@ __device__ __forceinline__ void aca_core(const float* s, const float* t,
   h[8] = c * a02 + d * a12 + e * f1;
 }
 
-// ---------------------------------------------------------------- K1 ------
-// One thread per hypothesis: 16 coalesced loads, 97 flops, 9 coalesced
-// stores.  Bound by device-memory bytes (100 B per hypothesis in f32, 50 B in
-// bf16), so the design is only: full coalescing and enough blocks in flight.
-constexpr int kSolveThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kSolveThreads)
-aca_solve_kernel(const T* __restrict__ src, const T* __restrict__ tar,
-                 T* __restrict__ out, long long b) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= b) return;
-  float s[8], t[8], h[9];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    s[k] = load_f32(src + k * b + i);
-    t[k] = load_f32(tar + k * b + i);
+struct AcaCore {
+  static __device__ __forceinline__ void run(const float (&s)[8],
+                                             const float (&t)[8],
+                                             float (&h)[9]) {
+    aca_core(s, t, h);
   }
-  aca_core(s, t, h);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) store_f32(out + k * b + i, h[k]);
-}
+};
+
+// ---------------------------------------------------------------- K1 ------
+// One thread per hypothesis (soa.cuh): 16 coalesced loads, 97 flops, 9
+// coalesced stores.  Bound by device-memory bytes (100 B per hypothesis in
+// f32, 50 B in bf16), so the design is only: full coalescing and enough
+// blocks in flight.
+constexpr int kSolveThreads = 256;
 
 // ---------------------------------------------------------------- K2 ------
 // One thread per hypothesis keeps its 9 H entries and 9 adjugate entries in
@@ -224,17 +200,6 @@ aca_solve_score_kernel(const T* __restrict__ src, const T* __restrict__ tar,
 }
 
 template <typename T>
-int launch_solve(const void* src, const void* tar, void* out, long long b,
-                 void* stream) {
-  const long long blocks = (b + kSolveThreads - 1) / kSolveThreads;
-  aca_solve_kernel<T><<<static_cast<unsigned>(blocks), kSolveThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(src), static_cast<const T*>(tar),
-      static_cast<T*>(out), b);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_solve_score(const void* src, const void* tar, const void* pts,
                        const void* weights, float t2, int scoring, void* out,
                        long long b, long long n, void* stream) {
@@ -267,17 +232,9 @@ int launch_solve_score(const void* src, const void* tar, const void* pts,
 
 }  // namespace
 
+SKS_EXPORT_SOLVE(aca_solve, AcaCore, kSolveThreads)
+
 extern "C" {
-
-int sks_aca_solve_f32(const void* src, const void* tar, void* out, long long b,
-                      void* stream) {
-  return launch_solve<float>(src, tar, out, b, stream);
-}
-
-int sks_aca_solve_bf16(const void* src, const void* tar, void* out,
-                       long long b, void* stream) {
-  return launch_solve<__nv_bfloat16>(src, tar, out, b, stream);
-}
 
 int sks_aca_solve_score_f32(const void* src, const void* tar, const void* pts,
                             const void* weights, float t2, int scoring,

@@ -4,13 +4,73 @@ The reference's accelerator stack is ``sks_tpu/kernels`` (Pallas on the TPU);
 here the same capability is CUDA C++ for ``sm_90a`` (``sks_tpu_torch/csrc``),
 built with ``nvcc`` at first use and bound with ``ctypes``
 (``sks_tpu_torch.kernels._build``).  Importing this package builds nothing.
+
+K1, K2: ``aca_cuda``; K3: ``sks_cuda``; K4 (four instances):
+``baselines_cuda``.  ``LAUNCHES`` counts the launches of every kernel.
+``SOLVE_KERNELS`` maps each solver name to its batched-solve kernel.
 """
 
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from torch import Tensor
+
+from sks_tpu_torch.kernels._soa import LAUNCHES, from_soa_h, to_soa  # noqa: F401
 from sks_tpu_torch.kernels.aca_cuda import (  # noqa: F401
-    LAUNCHES,
     aca_h_cuda,
     aca_solve_score_soa,
     aca_solve_soa,
-    from_soa_h,
-    to_soa,
+    aca_solve_soa_plain,
 )
+from sks_tpu_torch.kernels.baselines_cuda import (  # noqa: F401
+    SOA_SOLVERS,
+    baseline_h_cuda,
+    ge_solve_soa,
+    ge_solve_soa_plain,
+    gpt_solve_soa,
+    gpt_solve_soa_plain,
+    ho_solve_soa,
+    ho_solve_soa_plain,
+    ndlt_solve_soa,
+    ndlt_solve_soa_plain,
+)
+from sks_tpu_torch.kernels.sks_cuda import (  # noqa: F401
+    sks_h_cuda,
+    sks_solve_soa,
+    sks_solve_soa_plain,
+)
+
+
+class SolveKernel(NamedTuple):
+    """One batched 4-point solve kernel: (8, B) minimal sets -> (9, B)."""
+
+    key: str  # C entry points sks_<key>_{f32,bf16}; its LAUNCHES key
+    kernel: Callable[[Tensor, Tensor], Tensor]
+    plain: Callable[[Tensor, Tensor], Tensor]
+    source: str  # the CUDA source, from the repository root
+    replaces: str  # the Pallas kernel it replaces, file:line
+
+
+_BASELINES = "sks_tpu/kernels/baselines_pallas.py"
+
+#: Solver name (as in ``ops.SOLVERS_H``) -> its batched solve kernel.
+SOLVE_KERNELS = {
+    "aca": SolveKernel("aca_solve", aca_solve_soa, aca_solve_soa_plain,
+                       "sks_tpu_torch/csrc/aca.cu",
+                       "sks_tpu/kernels/aca_pallas.py:69"),
+    "sks": SolveKernel("sks_solve", sks_solve_soa, sks_solve_soa_plain,
+                       "sks_tpu_torch/csrc/sks.cu",
+                       "sks_tpu/kernels/sks_pallas.py:34"),
+    "rho_ge": SolveKernel("ge_solve", ge_solve_soa, ge_solve_soa_plain,
+                          "sks_tpu_torch/csrc/baselines.cu",
+                          f"{_BASELINES}:101"),
+    "gpt_lu": SolveKernel("gpt_solve", gpt_solve_soa, gpt_solve_soa_plain,
+                          "sks_tpu_torch/csrc/baselines.cu",
+                          f"{_BASELINES}:102"),
+    "ho": SolveKernel("ho_solve", ho_solve_soa, ho_solve_soa_plain,
+                      "sks_tpu_torch/csrc/baselines.cu", f"{_BASELINES}:105"),
+    "ndlt": SolveKernel("ndlt_solve", ndlt_solve_soa, ndlt_solve_soa_plain,
+                        "sks_tpu_torch/csrc/baselines.cu",
+                        f"{_BASELINES}:108"),
+}

@@ -1,9 +1,11 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library lands
-in ``sks_tpu_torch/_build/`` (ignored by git), named by a hash of the sources
-and flags, so an edited source rebuilds and an unchanged one loads at once.
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) to an object,
+all of them at once in parallel processes, and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.  The
+library lands in ``sks_tpu_torch/_build/`` (ignored by git), named by a hash
+of every file under ``csrc/`` (headers included) and of the flags, so an
+edited source or header rebuilds and an unchanged tree loads at once.
 Nothing here runs at import: the CPU tests import every module on machines
 without ``nvcc`` or a card.
 """
@@ -18,19 +20,20 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "find_nvcc", "load_library"]
+__all__ = ["NVCC_FLAGS", "SOLVE_KERNELS", "find_nvcc", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 
-#: -fmad=false: no fused multiply-add contraction, so each kernel rounds every
-#: product and sum on its own, exactly like its plain PyTorch version.  No
-#: --use_fast_math: the scoring needs IEEE division and NaN comparisons.
+#: Compile flags of every source.  -fmad=false: no fused multiply-add
+#: contraction, so each kernel rounds every product and sum on its own,
+#: exactly like its plain PyTorch version.  No --use_fast_math: the solvers
+#: need IEEE division and sqrt, the scoring NaN comparisons.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB: ctypes.CDLL | None = None
@@ -58,24 +61,33 @@ def find_nvcc() -> str:
     )
 
 
+#: The batched 4-point solves, one C entry point per storage dtype:
+#: ``sks_<name>_{f32,bf16}(src, tar, out, B, stream)``.
+SOLVE_KERNELS = ("aca_solve", "sks_solve", "ge_solve", "gpt_solve",
+                 "ho_solve", "ndlt_solve")
+
+
 def _sources() -> list[Path]:
+    """The translation units: every ``csrc/*.cu``."""
     return sorted(_CSRC.glob("*.cu"))
 
 
-def _digest(sources: list[Path]) -> str:
+def _digest(root: Path = _CSRC) -> str:
+    """Hash of the flags and of every file under ``root`` (headers too)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for path in sorted(p for p in root.rglob("*") if p.is_file()):
+        h.update(path.relative_to(root).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    for name in ("sks_aca_solve_f32", "sks_aca_solve_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, ll, vp]
-        fn.restype = ctypes.c_int
+    for kernel in SOLVE_KERNELS:
+        for dtype in ("f32", "bf16"):
+            fn = getattr(lib, f"sks_{kernel}_{dtype}")
+            fn.argtypes = [vp, vp, vp, ll, vp]
+            fn.restype = ctypes.c_int
     for name in ("sks_aca_solve_score_f32", "sks_aca_solve_score_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, ctypes.c_float, ctypes.c_int, vp, ll,
@@ -83,30 +95,45 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; return their outputs, raise if one fails.
+
+    Every process is waited for, failed or not, so none outlives the call.
+    """
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return logs
+
+
+def _build(nvcc: str, sources: list[Path], tmp: Path, out: Path) -> str:
+    """Compile every source to an object at once, link, move to ``out``."""
+    objs = [tmp / f"{src.stem}.o" for src in sources]
+    logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                     for src, obj in zip(sources, objs)])
+    lib = tmp / out.name
+    _run_all([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]])
+    os.replace(lib, out)
+    return "".join(f"== {src.name}\n{log}" for src, log in zip(sources, logs))
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' shared library; cached."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    sources = _sources()
-    out = _BUILD_DIR / f"libsks_tpu_torch_{_digest(sources)}.so"
+    out = _BUILD_DIR / f"libsks_tpu_torch_{_digest()}.so"
     if not out.is_file():
-        nvcc = find_nvcc()
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # Build into a temporary name and rename: concurrent processes never
-        # load a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        BUILD_LOG = proc.stdout + proc.stderr
-        os.replace(tmp, out)
+        # Build in a temporary directory and rename the library into place:
+        # concurrent processes never load a half-written one.
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+            BUILD_LOG = _build(find_nvcc(), _sources(), Path(tmp), out)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     _LIB = lib

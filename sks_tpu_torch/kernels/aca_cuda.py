@@ -2,10 +2,11 @@
 
 Each kernel sits beside its plain PyTorch version.  A wrapper runs the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the kernel
-or raises.  ``LAUNCHES`` counts kernel launches (plain runs are not counted),
-so a run can show that its path went through the kernels.
+or raises.  ``LAUNCHES`` (shared by every kernel, ``kernels._soa``) counts
+kernel launches (plain runs are not counted), so a run can show that its path
+went through the kernels.
 
-K1 ``aca_solve_soa`` (``csrc/aca.cu::aca_solve_kernel``)
+K1 ``aca_solve_soa`` (``csrc/aca.cu::AcaCore`` in ``soa.cuh::solve_soa_kernel``)
   Replaces ``sks_tpu/kernels/aca_pallas.py::aca_solve_soa`` (body
   ``_solve_kernel``).  Bound by device-memory bytes: 16 values in and 9 out
   per hypothesis (100 B in float32, 50 B in bfloat16 storage) for 97 flops.
@@ -34,6 +35,16 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from sks_tpu_torch.kernels._soa import (
+    LAUNCHES,
+    check_launch,
+    check_soa,
+    device_kind,
+    from_soa_h,
+    solve_soa,
+    solve_soa_plain,
+    to_soa,
+)
 from sks_tpu_torch.ops.aca import aca_core
 
 __all__ = [
@@ -47,58 +58,12 @@ __all__ = [
     "from_soa_h",
 ]
 
-#: Kernel launches per wrapper since the last reset (plain runs not counted).
-LAUNCHES = {"aca_solve": 0, "aca_solve_score": 0}
-
 _SCORING = {"inliers": 0, "msac": 1, "magsac": 2}
-_STORAGE = (torch.float32, torch.bfloat16)
-
-
-def to_soa(pts: Tensor) -> Tensor:
-    """(B, 4, 2) -> (8, B) component-major, contiguous."""
-    b = pts.shape[0]
-    return pts.reshape(b, 8).T.contiguous()
-
-
-def from_soa_h(h: Tensor) -> Tensor:
-    """(9, B) -> (B, 3, 3)."""
-    return h.T.reshape(h.shape[1], 3, 3)
-
-
-def _check_soa(src: Tensor, tar: Tensor) -> None:
-    if src.dim() != 2 or src.shape[0] != 8 or src.shape != tar.shape:
-        raise ValueError(
-            f"src and tar must both be (8, B); got {tuple(src.shape)} and "
-            f"{tuple(tar.shape)}"
-        )
-    if src.dtype not in _STORAGE or tar.dtype != src.dtype:
-        raise TypeError(
-            f"src and tar must share a float32 or bfloat16 dtype; got "
-            f"{src.dtype} and {tar.dtype}"
-        )
-    if src.device != tar.device:
-        raise ValueError(f"src on {src.device} but tar on {tar.device}")
-    if not (src.is_contiguous() and tar.is_contiguous()):
-        raise ValueError("src and tar must be contiguous")
-
-
-def _device_kind(*tensors: Tensor) -> str:
-    kind = tensors[0].device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel or plain version for device {kind!r}")
-    return kind
-
-
-def _check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def aca_solve_soa_plain(src: Tensor, tar: Tensor) -> Tensor:
     """Plain version of K1: :func:`aca_core` on the 8 component rows, in f32."""
-    s = [src[k].float() for k in range(8)]
-    t = [tar[k].float() for k in range(8)]
-    return torch.stack(aca_core(*s, *t)).to(src.dtype)
+    return solve_soa_plain(aca_core, src, tar)
 
 
 def aca_solve_soa(src: Tensor, tar: Tensor) -> Tensor:
@@ -110,24 +75,7 @@ def aca_solve_soa(src: Tensor, tar: Tensor) -> Tensor:
     Returns:
       (9, B) up-to-scale homographies in the input dtype, computed in f32.
     """
-    _check_soa(src, tar)
-    if _device_kind(src) == "cpu":
-        return aca_solve_soa_plain(src, tar)
-    from sks_tpu_torch.kernels._build import load_library
-
-    lib = load_library()
-    b = src.shape[1]
-    out = torch.empty((9, b), dtype=src.dtype, device=src.device)
-    if b == 0:
-        return out
-    fn = (lib.sks_aca_solve_f32 if src.dtype == torch.float32
-          else lib.sks_aca_solve_bf16)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(src.data_ptr(), tar.data_ptr(), out.data_ptr(), b, stream)
-    _check_launch(err, "aca_solve")
-    LAUNCHES["aca_solve"] += 1
-    return out
+    return solve_soa("aca_solve", aca_core, src, tar)
 
 
 def aca_h_cuda(src: Tensor, tar: Tensor) -> Tensor:
@@ -140,7 +88,7 @@ def aca_h_cuda(src: Tensor, tar: Tensor) -> Tensor:
 
 
 def _score_inputs(src, tar, pts, point_weights, scoring):
-    _check_soa(src, tar)
+    check_soa(src, tar)
     if scoring not in _SCORING:
         raise ValueError(f"scoring must be one of {tuple(_SCORING)}, got "
                          f"{scoring!r}")
@@ -234,7 +182,7 @@ def aca_solve_score_soa(
     """
     point_weights = _score_inputs(src, tar, pts, point_weights, scoring)
     t2 = float(threshold)
-    if _device_kind(src) == "cpu":
+    if device_kind(src) == "cpu":
         return aca_solve_score_soa_plain(src, tar, pts, t2, point_weights,
                                          scoring)
     from sks_tpu_torch.kernels._build import load_library
@@ -251,6 +199,6 @@ def aca_solve_score_soa(
         err = fn(src.data_ptr(), tar.data_ptr(), pts.data_ptr(),
                  point_weights.data_ptr(), t2, _SCORING[scoring],
                  out.data_ptr(), b, n, stream)
-    _check_launch(err, "aca_solve_score")
+    check_launch(err, "aca_solve_score")
     LAUNCHES["aca_solve_score"] += 1
     return out

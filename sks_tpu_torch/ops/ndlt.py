@@ -1,11 +1,16 @@
 """NDLT — normalized Direct Linear Transform homography (batched, N >= 4).
 
-Port of the N-point path of ``sks_tpu/ops/ndlt.py``: Hartley-normalize both
-point sets, accumulate the 9x9 normal matrix of the stacked DLT constraints,
-take the smallest eigenvector with the fixed-sweep Jacobi solver, denormalize.
-Optional per-point weights make padded point sets and IRLS reweighting work
-without data-dependent shapes.  The straight-line minimal-set form
-``ndlt_core`` comes with the port of its kernel (ROADMAP.md Queue B, K4).
+Port of ``sks_tpu/ops/ndlt.py``: Hartley-normalize both point sets,
+accumulate the 9x9 normal matrix of the stacked DLT constraints, take its
+smallest eigenvector, denormalize.
+
+Two formulations, as in the JAX package: :func:`ndlt_h`, the N-point
+weighted matrix form (optional per-point weights make padded point sets and
+IRLS reweighting work without data-dependent shapes), and :func:`ndlt_core`,
+the straight-line minimal-set form.  ``ndlt_core(eig='invit')`` is the plain
+version of the CUDA kernel ``ndlt_solve_soa`` and the specification of its
+body (``csrc/baselines.cu``).  The JAX package's double-float branches become
+native fp64 with kernel K5.
 """
 
 from __future__ import annotations
@@ -13,9 +18,111 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from sks_tpu_torch.ops.linalg import jacobi_eigh, mm_highest as _mm
+from sks_tpu_torch.ops.linalg import (
+    invit_smallest_col_core,
+    jacobi_smallest_col_core,
+    mm_highest as _mm,
+    smallest_eigvec_sym,
+)
 
-__all__ = ["ndlt", "ndlt_h"]
+__all__ = ["ndlt", "ndlt_core", "ndlt_h"]
+
+
+def ndlt_core(
+    x0, y0, x1, y1, x2, y2, x3, y3,
+    X0, Y0, X1, Y1, X2, Y2, X3, Y3,
+    sweeps: int = 6,
+    eig: str = "jacobi",
+):
+    """Straight-line minimal-set (N=4) NDLT on components.
+
+    Exploits the DLT normal matrix's block structure: with per-point
+    ``p = (x, y, 1)`` and constraint rows ``[p, 0, -X'p]``, ``[0, p, -Y'p]``,
+
+        LtL = [[S1, 0, Sx], [0, S1, Sy], [Sx, Sy, Sd]]
+
+    where each 3x3 block is a weighted sum of ``p p^T`` with weights
+    ``1, -X', -Y', X'^2 + Y'^2``: 24 scalar sums.  The smallest eigenvector
+    comes from ``sweeps`` sweeps of component Jacobi (``eig='jacobi'``) or
+    from shifted inverse iteration seeded by 3 Jacobi sweeps
+    (``eig='invit'``, the kernel's form).  Returns 9 entries row-major, up
+    to scale.
+    """
+    if eig not in ("jacobi", "invit"):
+        raise ValueError(f"unknown eig {eig!r}")
+    quarter = 0.25
+    # Hartley scales divide by the mean |dev|, which is >= a pixel for any
+    # non-coincident quad; the f32-tiny floor only guards all-equal points.
+    tiny = torch.finfo(torch.float32).tiny
+
+    def hartley(xs, ys):
+        cx = (xs[0] + xs[1] + xs[2] + xs[3]) * quarter
+        cy = (ys[0] + ys[1] + ys[2] + ys[3]) * quarter
+        dx = [x - cx for x in xs]
+        dy = [y - cy for y in ys]
+        devx = (torch.abs(dx[0]) + torch.abs(dx[1]) + torch.abs(dx[2])
+                + torch.abs(dx[3])) * quarter
+        devy = (torch.abs(dy[0]) + torch.abs(dy[1]) + torch.abs(dy[2])
+                + torch.abs(dy[3])) * quarter
+        # clamp propagates NaN, as jnp.maximum does.
+        sx = 1.0 / torch.clamp(devx, min=tiny)
+        sy = 1.0 / torch.clamp(devy, min=tiny)
+        return ([d * sx for d in dx], [d * sy for d in dy], cx, cy, sx, sy)
+
+    nx, ny, cx1, cy1, sx1, sy1 = hartley((x0, x1, x2, x3), (y0, y1, y2, y3))
+    tx, ty, cx2, cy2, sx2, sy2 = hartley((X0, X1, X2, X3), (Y0, Y1, Y2, Y3))
+
+    def wsum_ppt(w):
+        """Weighted sums of the 6 unique p p^T entries over the 4 points."""
+        return (
+            sum(w[i] * nx[i] * nx[i] for i in range(4)),  # xx
+            sum(w[i] * nx[i] * ny[i] for i in range(4)),  # xy
+            sum(w[i] * nx[i] for i in range(4)),          # x
+            sum(w[i] * ny[i] * ny[i] for i in range(4)),  # yy
+            sum(w[i] * ny[i] for i in range(4)),          # y
+            sum(w[i] for i in range(4)),                  # 1
+        )
+
+    ones = [torch.ones_like(x0)] * 4
+    z = torch.zeros_like(x0)
+    s1 = wsum_ppt(ones)
+    sx_ = wsum_ppt([-t for t in tx])
+    sy_ = wsum_ppt([-t for t in ty])
+    sd = wsum_ppt([tx[i] * tx[i] + ty[i] * ty[i] for i in range(4)])
+
+    def block(e):
+        xx, xy, x, yy, y, o = e
+        return [[xx, xy, x], [xy, yy, y], [x, y, o]]
+
+    zb = [[z] * 3 for _ in range(3)]
+    b1, bx, by, bd = block(s1), block(sx_), block(sy_), block(sd)
+    ltl = [
+        [*b1[r], *zb[r], *bx[r]] for r in range(3)
+    ] + [
+        [*zb[r], *b1[r], *by[r]] for r in range(3)
+    ] + [
+        [*bx[r], *by[r], *bd[r]] for r in range(3)
+    ]
+
+    if eig == "invit":
+        h = invit_smallest_col_core(ltl)
+    else:
+        h = jacobi_smallest_col_core(ltl, sweeps=sweeps)
+
+    # Denormalize: H = T2^{-1} Hn T1 (anisotropic Hartley T's).
+    rows_t1 = []
+    for r in range(3):
+        h0, h1, h2 = h[3 * r], h[3 * r + 1], h[3 * r + 2]
+        rows_t1.append(
+            (h0 * sx1, h1 * sy1, h2 - h0 * sx1 * cx1 - h1 * sy1 * cy1)
+        )
+    inv_sx2 = 1.0 / sx2
+    inv_sy2 = 1.0 / sy2
+    out0 = tuple(rows_t1[0][c] * inv_sx2 + cx2 * rows_t1[2][c]
+                 for c in range(3))
+    out1 = tuple(rows_t1[1][c] * inv_sy2 + cy2 * rows_t1[2][c]
+                 for c in range(3))
+    return (*out0, *out1, *rows_t1[2])
 
 
 def _hartley(pts: Tensor, w: Tensor):
@@ -71,17 +178,13 @@ def ndlt_h(
       weights: optional (..., N) nonnegative weights; zero drops a point.
         Leading dims of ``weights`` broadcast against the points, so one point
         set refits under a batch of weight sets.
-      eig_method: 'jacobi' (branch-free fixed sweeps).
+      eig_method: 'jacobi' (default, branch-free fixed sweeps) or another
+        method of :func:`sks_tpu_torch.ops.linalg.smallest_eigvec_sym`
+        ('eigh': ``torch.linalg.eigh``).
 
     Returns:
       (..., 3, 3) homography, unnormalized.
     """
-    if eig_method != "jacobi":
-        raise NotImplementedError(
-            f"eig_method={eig_method!r} is not ported yet; the closed-form and "
-            "inverse-iteration eigensolvers come with ndlt_core and K4 "
-            "(ROADMAP.md Queue B)"
-        )
     if weights is None:
         weights = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
     sn, (cx1, cy1, sx1, sy1) = _hartley(src, weights)
@@ -102,8 +205,7 @@ def ndlt_h(
     w2 = torch.cat([weights, weights], dim=-1).expand(a.shape[:-1])
     ltl = torch.einsum("...np,...n,...nq->...pq", a, w2, a)
 
-    _, v = jacobi_eigh(ltl)
-    h = v[..., :, 0]
+    h = smallest_eigvec_sym(ltl, method=eig_method)
     hm = h.reshape(*h.shape[:-1], 3, 3)
 
     # Denormalize: H = T2^{-1} @ Hn @ T1 with T = [[sx,0,-sx cx],[0,sy,-sy cy],[0,0,1]].

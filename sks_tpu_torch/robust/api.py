@@ -49,7 +49,8 @@ def find_homography(
       ransac_reproj_threshold: inlier threshold in pixels (symmetric transfer).
       max_iters: hypothesis budget, all evaluated at once (rounded up to a
         multiple of 128 on the fused path, as in the JAX package).
-      solver: minimal solver for hypotheses ('aca' or 'ndlt' so far).
+      solver: minimal solver for hypotheses, a name in
+        ``sks_tpu_torch.ops.SOLVERS_H``.
       generator: draws the minimal sets (default: seeded 0 on the input's
         device — deterministic).
       refine_iters: IRLS local-optimization rounds on the consensus set.

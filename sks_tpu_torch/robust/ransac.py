@@ -11,7 +11,11 @@ branched on.
 On CUDA tensors the fused path (:func:`ransac_homography_fused`) solves and
 scores all B hypotheses in the hand-written kernel
 ``sks_tpu_torch.kernels.aca_cuda.aca_solve_score_soa``; on CPU tensors the
-same call runs that kernel's plain version.
+same call runs that kernel's plain version.  The general path solves its
+float32 batch on CUDA in the kernel whose body is the registered solver's
+own core: K1 for 'aca', K3 for 'sks', K4-GE for 'rho_ge'.  'gpt_lu', 'ho'
+and 'ndlt' stay on their eager ``SOLVERS_H`` forms, which are other
+formulations than their kernels' cores (as in the JAX package).
 
 Randomness: draws come from an explicit ``torch.Generator``.  Its stream is
 not ``jax.random``'s, so every entry point also takes ``indices=``, a (B, 4)
@@ -27,8 +31,9 @@ import torch
 from torch import Tensor
 
 from sks_tpu_torch.geom.homography import apply_homography, inv_h
-from sks_tpu_torch.kernels.aca_cuda import aca_solve_score_soa, to_soa
-from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask
+from sks_tpu_torch.kernels import SOLVE_KERNELS, from_soa_h, to_soa
+from sks_tpu_torch.kernels.aca_cuda import aca_solve_score_soa
+from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask, sks_valid_mask
 from sks_tpu_torch.ops.ndlt import ndlt_h
 
 __all__ = [
@@ -155,6 +160,27 @@ def sample_minimal_sets(generator: torch.Generator, num_points: int,
     """
     return torch.randint(0, int(num_points), (batch, 4), generator=generator,
                          device=generator.device)
+
+
+#: Solvers whose batched solve kernel has the registered solver's own core as
+#: its body (so kernel and eager op agree bit for bit on the card).  The
+#: kernels of 'gpt_lu', 'ho' and 'ndlt' run other formulations than
+#: ``SOLVERS_H`` ('unrolled' GPT, closed3 HO, the N-point NDLT).
+_KERNEL_SOLVERS = ("aca", "sks", "rho_ge")
+
+
+def _solve_batch(name: str, s4: Tensor, t4: Tensor) -> Tensor:
+    """(B, 4, 2) minimal sets -> (B, 3, 3) up-to-scale hypotheses.
+
+    A float32 batch on CUDA goes through the solver's kernel where it is
+    the same core (``_KERNEL_SOLVERS``); everything else through
+    ``SOLVERS_H``.
+    """
+    if (name in _KERNEL_SOLVERS and s4.device.type == "cuda"
+            and s4.dtype == torch.float32):
+        kernel = SOLVE_KERNELS[name].kernel
+        return from_soa_h(kernel(to_soa(s4), to_soa(t4)))
+    return SOLVERS_H[name](s4, t4)
 
 
 def _sample_chunk(generator, n, config, point_mask=None):
@@ -379,13 +405,16 @@ def _eval_chunk(generator, src, tar, config, point_mask, indices=None):
     if config.fused:
         return _eval_chunk_fused(generator, src, tar, config, point_mask,
                                  indices)
-    solver = SOLVERS_H[config.solver]
     idx = _minimal_sets(generator, src, config, point_mask, indices)
     s4 = src[idx]  # (B, 4, 2)
     t4 = tar[idx]
-    h = solver(s4, t4)  # (B, 3, 3), up to scale
-    if config.solver == "aca":
-        valid = aca_valid_mask(s4, t4)
+    h = _solve_batch(config.solver, s4, t4)  # (B, 3, 3), up to scale
+    valid_mask = {"aca": aca_valid_mask, "sks": sks_valid_mask}.get(
+        config.solver)
+    if valid_mask is not None:
+        # ACA and SKS have their own degeneracy sets: near-degenerate but
+        # finite hypotheses score -1 instead of garbage, as in the JAX package.
+        valid = valid_mask(s4, t4)
         h = torch.where(valid[..., None, None], h, torch.full_like(h, torch.nan))
     scores, inl = score_hypotheses(
         h, src, tar, config.threshold, point_mask, config.scoring,

@@ -6,14 +6,15 @@ GPU machine without it, from the repository root:
 
     python -m pytest tests/test_torch_cuda.py -q -o addopts="" --noconftest
 
-Sizes are the main path's: K1 at B = 2^18 and a ragged B; K2 at B = 8192
-minimal sets against N = 2,047 points.
+Sizes are the main path's: K1, K3 and the K4 instances at B = 2^18, a
+ragged B and B = 1; K2 at B = 8192 minimal sets against N = 2,047 points.
 """
 
 import pytest
 import torch
 
 from sks_tpu_torch.geom.homography import normalize_h
+from sks_tpu_torch.kernels import SOLVE_KERNELS
 from sks_tpu_torch.kernels import aca_cuda as K
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 from sks_tpu_torch.robust.ransac import sample_minimal_sets
@@ -104,6 +105,44 @@ def test_find_homography_on_cuda_runs_the_fused_kernel(score_inputs, dev):
     h, mask = sks_tpu_torch.find_homography(src, tar)
     torch.cuda.synchronize()
     assert K.LAUNCHES["aca_solve_score"] == before + 1
+    assert h.device == src.device and mask.all()
+    torch.testing.assert_close(normalize_h(h, "fro"),
+                               normalize_h(h_true, "fro"), atol=2e-3, rtol=0)
+
+
+def _equal_nan(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+# K3 and the four K4 instances (K1 has its own test above).
+@pytest.mark.parametrize("name", ["sks", "rho_ge", "gpt_lu", "ho", "ndlt"])
+@pytest.mark.parametrize("b", [1 << 18, 1000, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_k4_kernel_equals_plain(quads, name, b, dtype):
+    key, kern, plain = SOLVE_KERNELS[name][:3]
+    s = quads[0][:, :b].contiguous().to(dtype)
+    t = quads[1][:, :b].contiguous().to(dtype)
+    before = dict(K.LAUNCHES)
+    hk = kern(s, t)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, key: before[key] + 1}
+    hp = plain(s, t)
+    assert hk.dtype == dtype and hk.shape == (9, b)
+    # Each body follows its PyTorch core op for op (-fmad=false, IEEE
+    # division and sqrt): equal, a NaN where the plain version has one.
+    assert _equal_nan(hk, hp)
+
+
+def test_find_homography_sks_on_cuda_runs_k3(dev):
+    import sks_tpu_torch
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    src, tar, h_true = random_correspondences(g, (), 500, 0.5)
+    before = dict(K.LAUNCHES)
+    h, mask = sks_tpu_torch.find_homography(src, tar, solver="sks")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sks_solve"] == before["sks_solve"] + 1
+    assert K.LAUNCHES["aca_solve_score"] == before["aca_solve_score"]
     assert h.device == src.device and mask.all()
     torch.testing.assert_close(normalize_h(h, "fro"),
                                normalize_h(h_true, "fro"), atol=2e-3, rtol=0)

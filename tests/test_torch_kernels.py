@@ -1,4 +1,4 @@
-"""Port parity, kernels: the plain versions of K1 and K2 against the Pallas kernels.
+"""Port parity, kernels: the plain versions of K1-K4 against the Pallas kernels.
 
 On CPU tensors each wrapper in ``sks_tpu_torch.kernels.aca_cuda`` runs its
 kernel's plain PyTorch version; here that is held against the JAX package's
@@ -15,6 +15,11 @@ of all minimal sets) and whose residuals for near-degenerate sets are
 roundoff.  There the two float32 evaluations differ whatever the order, so K2
 is held exactly on the hypotheses RANSAC keeps (the best 16) and
 statistically on the rest.
+
+K3 (SKS) and the K4 instances GE, GPT and HO are held against their Pallas
+kernels in interpret mode at the tolerances of tests/test_torch_solvers.py
+(the same cores; the FMA differences, after ``normalize_h('fro')``): 5e-5,
+and 2e-4 for HO.  K4-NDLT is held against its jitted core there.
 """
 
 import numpy as np
@@ -22,18 +27,24 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from torch_parity import apply_h, fro, plane_h, quads, to_np
+from torch_parity import apply_h, fro, from_tiles, plane_h, quads, to_np
+from torch_parity import to_tiles
 
 from sks_tpu.kernels import aca_pallas as jk
+from sks_tpu.kernels import baselines_pallas as jb
+from sks_tpu.kernels import sks_pallas as js
 from sks_tpu.robust.ransac import fused_kernel_threshold as jthreshold
 from sks_tpu.robust.ransac import RansacConfig as JConfig
 
 from sks_tpu_torch.kernels import aca_cuda as tk
+from sks_tpu_torch.kernels import baselines_cuda as tb
+from sks_tpu_torch.kernels import sks_cuda as ts
 from sks_tpu_torch.kernels import _build
 from sks_tpu_torch.ops import aca_h
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 
 B = 256  # two 128-lane rows of the TPU layout
+T = torch.from_numpy
 
 
 def _soa_pair(dtype=np.float32, b=B, seed=0):
@@ -182,6 +193,67 @@ def test_k2_default_weights_are_ones():
                        tk.aca_solve_score_soa(*args, point_weights=ones))
 
 
+# K3 and the K4 instances that interpret mode runs in seconds; the Pallas
+# NDLT is marked slow in the JAX package's own tests.
+_SOLVE = {
+    "sks": (js.sks_solve_soa, ts.sks_solve_soa, 5e-5),
+    "rho_ge": (jb.ge_solve_soa, tb.ge_solve_soa, 5e-5),
+    "gpt_lu": (jb.gpt_solve_soa, tb.gpt_solve_soa, 5e-5),
+    "ho": (jb.ho_solve_soa, tb.ho_solve_soa, 2e-4),
+}
+
+
+@pytest.mark.parametrize("name", list(_SOLVE))
+def test_k3_k4_plain_matches_pallas_f32(name):
+    jfn, tfn, atol = _SOLVE[name]
+    src, tar, s_soa, t_soa = _soa_pair(seed=6)
+    with pltpu.force_tpu_interpret_mode():
+        hj = jfn(to_tiles(s_soa), to_tiles(t_soa), tile=1)
+    ht = tfn(s_soa, t_soa)
+    assert ht.shape == (9, B) and ht.dtype == torch.float32
+    np.testing.assert_allclose(fro(to_np(tk.from_soa_h(ht))),
+                               fro(to_np(tk.from_soa_h(T(from_tiles(hj))))),
+                               atol=atol)
+
+
+@pytest.mark.parametrize("name", ["sks", "rho_ge"])
+def test_k3_k4_plain_matches_pallas_bf16_storage(name):
+    jfn, tfn, _ = _SOLVE[name]
+    _, _, s_soa, t_soa = _soa_pair(seed=7)
+    s16, t16 = s_soa.to(torch.bfloat16), t_soa.to(torch.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        hj = jfn(to_tiles(s16).astype("bfloat16"),
+                 to_tiles(t16).astype("bfloat16"), tile=1)
+    ht = tfn(s16, t16)
+    assert ht.dtype == torch.bfloat16
+    # Both store the f32 result rounded to bf16: at most one bf16 step apart
+    # (8 mantissa bits) where the f32 results straddle a rounding boundary.
+    np.testing.assert_allclose(fro(to_np(tk.from_soa_h(ht))),
+                               fro(to_np(tk.from_soa_h(T(from_tiles(hj))))),
+                               atol=8e-3)
+    # Exactly the f32 plain result of the bf16 inputs, rounded to bf16.
+    assert torch.equal(ht, tfn(s16.float(), t16.float()).to(torch.bfloat16))
+
+
+def test_soa_tiles_round_trip():
+    _, _, s_soa, _ = _soa_pair()
+    tiles = to_tiles(s_soa)
+    assert tiles.shape == (8, B // 128, 128)
+    np.testing.assert_array_equal(from_tiles(tiles), to_np(s_soa))
+
+
+def test_k3_k4_take_a_ragged_batch():
+    src, tar = quads(8, 1000)
+    s, t = T(src), T(tar)
+    for name in tb.SOA_SOLVERS:
+        h = tb.baseline_h_cuda(name, s, t)
+        assert h.shape == (1000, 3, 3) and bool(torch.isfinite(h).all())
+    assert ts.sks_h_cuda(s, t).shape == (1000, 3, 3)
+    empty = torch.zeros((8, 0))
+    for fn in (ts.sks_solve_soa, *tb.SOA_SOLVERS.values()):
+        assert fn(empty, empty).shape == (9, 0)
+
+
 def _bad_call(case):
     s = torch.zeros((8, 16))
     p = torch.zeros((4, 10))
@@ -195,12 +267,19 @@ def _bad_call(case):
         "pts_shape": (tk.aca_solve_score_soa, (s, s, p.T.contiguous(), 1.0)),
         "weights_shape": (tk.aca_solve_score_soa, (s, s, p, 1.0, w[:5])),
         "scoring": (tk.aca_solve_score_soa, (s, s, p, 1.0, w, "lmeds")),
+        "sks_f64": (ts.sks_solve_soa, (s.double(), s.double())),
+        "ge_shape": (tb.ge_solve_soa, (s, s[:, :8].contiguous())),
+        "gpt_non_contiguous": (tb.gpt_solve_soa,
+                               (torch.zeros((16, 8)).T,) * 2),
+        "ho_mixed_dtype": (tb.ho_solve_soa, (s, s.to(torch.bfloat16))),
+        "ndlt_not_soa": (tb.ndlt_solve_soa, (torch.zeros((9, 16)),) * 2),
     }[case]
 
 
 @pytest.mark.parametrize("case", [
     "f64", "mixed_dtype", "not_soa", "non_contiguous", "pts_f64", "pts_shape",
-    "weights_shape", "scoring",
+    "weights_shape", "scoring", "sks_f64", "ge_shape", "gpt_non_contiguous",
+    "ho_mixed_dtype", "ndlt_not_soa",
 ])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
     fn, args = _bad_call(case)
@@ -213,7 +292,13 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
     _, _, s_soa, t_soa = _soa_pair(b=128)
     tk.aca_solve_soa(s_soa, t_soa)
     tk.aca_solve_score_soa(s_soa, t_soa, torch.zeros((4, 3)), 1.0)
+    ts.sks_solve_soa(s_soa, t_soa)
+    for fn in tb.SOA_SOLVERS.values():
+        fn(s_soa, t_soa)
     assert tk.LAUNCHES == before
+    assert set(tk.LAUNCHES) == {"aca_solve", "aca_solve_score", "sks_solve",
+                                "ge_solve", "gpt_solve", "ho_solve",
+                                "ndlt_solve"}
 
 
 def test_build_flags_keep_ieee_scoring():
@@ -221,6 +306,33 @@ def test_build_flags_keep_ieee_scoring():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     sources = _build._sources()
-    assert [p.name for p in sources] == ["aca.cu"]
+    assert [p.name for p in sources] == ["aca.cu", "baselines.cu", "sks.cu"]
     # The library name follows the sources: an edit rebuilds.
-    assert len(_build._digest(sources)) == 16
+    assert len(_build._digest()) == 16
+
+
+def test_build_digest_covers_headers(tmp_path):
+    """An edit to a shared header, not only to a .cu, names a new library."""
+    for src in _build._CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    before = _build._digest(tmp_path)
+    assert before == _build._digest()
+    header = tmp_path / "soa.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    assert _build._digest(tmp_path) != before
+    (tmp_path / "sks.cu").write_bytes(b"// edited")
+    assert len({before, _build._digest(tmp_path)}) == 2
+
+
+def test_every_solve_kernel_has_its_c_entry_points():
+    from sks_tpu_torch.kernels import SOLVE_KERNELS
+
+    text = "".join(p.read_text() for p in _build._sources())
+    for kernel in _build.SOLVE_KERNELS:
+        assert f"SKS_EXPORT_SOLVE({kernel}," in text
+    # The solver registry names each of them once, with a source that has it.
+    keys = [solve.key for solve in SOLVE_KERNELS.values()]
+    assert sorted(keys) == sorted(_build.SOLVE_KERNELS)
+    for solve in SOLVE_KERNELS.values():
+        source = (_build._PKG.parent / solve.source).read_text()
+        assert f"SKS_EXPORT_SOLVE({solve.key}," in source

@@ -77,3 +77,17 @@ def to_np(x) -> np.ndarray:
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     a = np.asarray(x)
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def to_tiles(soa) -> np.ndarray:
+    """The port's (C, B) component-major layout as the TPU's (C, B/128, 128)
+    lane tiles (B a multiple of 128)."""
+    a = to_np(soa) if isinstance(soa, torch.Tensor) else np.asarray(soa)
+    c, b = a.shape
+    return a.reshape(c, b // 128, 128)
+
+
+def from_tiles(tiles) -> np.ndarray:
+    """The TPU's (C, M, 128) lane tiles as the port's (C, M * 128)."""
+    a = to_np(tiles)
+    return a.reshape(a.shape[0], -1)
