@@ -11,7 +11,9 @@ each kernel's plain PyTorch version runs instead.
 The port covers the robust homography fit (``find_homography`` with its fused
 ACA solve+score kernel) and the batched 4-point solve of all six solvers of
 the paper's Table 8 (ACA, SKS, RHO-GE, GPT-LU, HO, NDLT), each with its
-kernel; the rest of ``sks_tpu`` follows slice by slice (see ROADMAP.md).
+kernel, in float32 and in native float64 (the ``*_fp64`` ops, fp64 RANSAC
+scoring, kernel K5); the rest of ``sks_tpu`` follows slice by slice (see
+ROADMAP.md).
 """
 
 import os as _os
@@ -33,14 +35,23 @@ from sks_tpu_torch.ops import (  # noqa: E402
     SOLVERS,
     SOLVERS_H,
     aca,
+    aca_fp64,
+    aca_fp64_h,
     aca_h,
+    ge_fp64_h,
+    gpt_fp64_h,
     gpt_lu,
     ho,
+    ho_fp64_h,
     ho_h,
     ndlt,
+    ndlt_fp64_h,
     ndlt_h,
+    residual2_fp64,
     rho_ge,
     sks,
+    sks_fp64,
+    sks_fp64_h,
     sks_h,
     solve_h,
 )
@@ -69,6 +80,15 @@ __all__ = [
     "ndlt",
     "ndlt_h",
     "solve_h",
+    "aca_fp64_h",
+    "aca_fp64",
+    "sks_fp64_h",
+    "sks_fp64",
+    "ndlt_fp64_h",
+    "ge_fp64_h",
+    "gpt_fp64_h",
+    "ho_fp64_h",
+    "residual2_fp64",
     "find_homography",
     "get_affine_transform",
     "get_perspective_transform",

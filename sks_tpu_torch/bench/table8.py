@@ -43,8 +43,10 @@ from sks_tpu_torch.utils.synth import random_quad_pairs
 
 __all__ = [
     "REFERENCE_TABLE8_US",
+    "card_line",
     "device_ms",
     "median_device_ms",
+    "nearest_ref_us",
     "run_table",
     "to_markdown",
     "main",
@@ -109,7 +111,7 @@ def median_device_ms(fn, runs: int, reps: int | None = None) -> float:
     return statistics.median(device_ms(fn, reps) for _ in range(runs))
 
 
-def _ref_us(name: str, b: int):
+def nearest_ref_us(name: str, b: int):
     """(reference batch, reference us): the published batch nearest to b."""
     table = REFERENCE_TABLE8_US[name]
     ref_b = min(table, key=lambda x: abs(x - b))
@@ -137,7 +139,7 @@ def run_table(batches=DEFAULT_B, seed: int = 0) -> list[dict]:
                                          reps=10)
             plain_ms = median_device_ms(lambda: plain(s, t), PLAIN_RUNS)
             eager_ms = median_device_ms(lambda: eager(src, tar), PLAIN_RUNS)
-            ref_b, ref_us = _ref_us(name, b)
+            ref_b, ref_us = nearest_ref_us(name, b)
             rows.append({
                 "solver": name, "batch": b, "dtype": "float32",
                 "kernel_ms": kernel_ms, "plain_soa_ms": plain_ms,
@@ -165,7 +167,8 @@ def to_markdown(rows) -> str:
     return "\n".join(lines)
 
 
-def _card() -> str:
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -183,7 +186,7 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="JSON output path")
     args = ap.parse_args(argv)
 
-    card = _card()
+    card = card_line()
     rows = run_table(FULL_B if args.full else DEFAULT_B)
     print(f"card: {card}")
     print(to_markdown(rows))

@@ -6,84 +6,18 @@
 //                    (body _solve_score_kernel): ACA solve + adjugate +
 //                    symmetric-transfer RANSAC scoring against all N points.
 //
-// Layout and build flags: see soa.cuh.  -fmad=false makes every product and
-// sum round on its own, exactly as the plain PyTorch version (one
-// elementwise op at a time) does, so the kernels and their plain versions
-// agree bit for bit.  The scoring relies on IEEE division and on NaN < t2
-// being false, which fast math would break.
+// The core: aca.cuh.  Layout and build flags: see soa.cuh.  -fmad=false
+// makes every product and sum round on its own, exactly as the plain
+// PyTorch version (one elementwise op at a time) does, so the kernels and
+// their plain versions agree bit for bit.  The scoring relies on IEEE
+// division and on NaN < t2 being false, which fast math would break.
 //
 // Each exported function launches on the given stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError().
 
-#include "soa.cuh"
+#include "aca.cuh"
 
 namespace {
-
-// sks_tpu_torch/ops/aca.py::aca_core, line by line, in the same order.
-// s = (m1x, m1y, n1x, n1y, p1x, p1y, q1x, q1y); t likewise for plane 2.
-__device__ __forceinline__ void aca_core(const float* s, const float* t,
-                                         float* h) {
-  const float m1x = s[0], m1y = s[1], n1x = s[2], n1y = s[3];
-  const float p1x = s[4], p1y = s[5], q1x = s[6], q1y = s[7];
-  const float m2x = t[0], m2y = t[1], n2x = t[2], n2y = t[3];
-  const float p2x = t[4], p2y = t[5], q2x = t[6], q2y = t[7];
-
-  const float e1x = n1x - m1x;
-  const float e1y = n1y - m1y;
-  const float f1x = p1x - m1x;
-  const float f1y = p1y - m1y;
-  const float g1x = q1x - m1x;
-  const float g1y = q1y - m1y;
-  const float f1 = e1x * f1y - e1y * f1x;
-  const float alpha = f1y * g1x - f1x * g1y;
-  const float beta = e1x * g1y - e1y * g1x;
-
-  const float e2x = n2x - m2x;
-  const float e2y = n2y - m2y;
-  const float f2x = p2x - m2x;
-  const float f2y = p2y - m2y;
-  const float g2x = q2x - m2x;
-  const float g2y = q2y - m2y;
-  const float f2 = e2x * f2y - e2y * f2x;
-  const float gamma = f2y * g2x - f2x * g2y;
-  const float delta = e2x * g2y - e2y * g2x;
-
-  const float c = beta * (gamma * (f1 - beta) - alpha * (f2 - delta));
-  const float d = alpha * (delta * (f1 - alpha) - beta * (f2 - gamma));
-  const float e = alpha * beta * (f2 - gamma - delta);
-  const float ce = c + e;
-  const float de = d + e;
-
-  const float t00 = e2x * ce + m2x * c;
-  const float t01 = f2x * de + m2x * d;
-  const float t02 = m2x * e;
-  const float t10 = e2y * ce + m2y * c;
-  const float t11 = f2y * de + m2y * d;
-  const float t12 = m2y * e;
-
-  const float a00 = f1y, a01 = -f1x;
-  const float a10 = -e1y, a11 = e1x;
-  const float a02 = -(a00 * m1x + a01 * m1y);
-  const float a12 = -(a10 * m1x + a11 * m1y);
-
-  h[0] = t00 * a00 + t01 * a10;
-  h[1] = t00 * a01 + t01 * a11;
-  h[2] = t00 * a02 + t01 * a12 + t02 * f1;
-  h[3] = t10 * a00 + t11 * a10;
-  h[4] = t10 * a01 + t11 * a11;
-  h[5] = t10 * a02 + t11 * a12 + t12 * f1;
-  h[6] = c * a00 + d * a10;
-  h[7] = c * a01 + d * a11;
-  h[8] = c * a02 + d * a12 + e * f1;
-}
-
-struct AcaCore {
-  static __device__ __forceinline__ void run(const float (&s)[8],
-                                             const float (&t)[8],
-                                             float (&h)[9]) {
-    aca_core(s, t, h);
-  }
-};
 
 // ---------------------------------------------------------------- K1 ------
 // One thread per hypothesis (soa.cuh): 16 coalesced loads, 97 flops, 9
@@ -128,8 +62,8 @@ aca_solve_score_kernel(const T* __restrict__ src, const T* __restrict__ tar,
     float s[8], t[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      s[k] = load_f32(src + k * b + i);
-      t[k] = load_f32(tar + k * b + i);
+      load(src + k * b + i, s[k]);
+      load(tar + k * b + i, t[k]);
     }
     aca_core(s, t, h);
   }
@@ -232,7 +166,7 @@ int launch_solve_score(const void* src, const void* tar, const void* pts,
 
 }  // namespace
 
-SKS_EXPORT_SOLVE(aca_solve, AcaCore, kSolveThreads)
+SKS_EXPORT_SOLVE(aca_solve, AcaCore<float>, kSolveThreads)
 
 extern "C" {
 

@@ -6,12 +6,15 @@ built with ``nvcc`` at first use and bound with ``ctypes``
 (``sks_tpu_torch.kernels._build``).  Importing this package builds nothing.
 
 K1, K2: ``aca_cuda``; K3: ``sks_cuda``; K4 (four instances):
-``baselines_cuda``.  ``LAUNCHES`` counts the launches of every kernel.
-``SOLVE_KERNELS`` maps each solver name to its batched-solve kernel.
+``baselines_cuda``; K5 (six kinds, float64): ``fp64_cuda``.  ``LAUNCHES``
+counts the launches of every kernel.  ``SOLVE_KERNELS`` maps each solver
+name to its float32 batched-solve kernel, ``FP64_SOLVE_KERNELS`` to its
+float64 one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 from torch import Tensor
@@ -35,6 +38,11 @@ from sks_tpu_torch.kernels.baselines_cuda import (  # noqa: F401
     ndlt_solve_soa,
     ndlt_solve_soa_plain,
 )
+from sks_tpu_torch.kernels.fp64_cuda import (  # noqa: F401
+    fp64_h_cuda,
+    fp64_solve_soa,
+    fp64_solve_soa_plain,
+)
 from sks_tpu_torch.kernels.sks_cuda import (  # noqa: F401
     sks_h_cuda,
     sks_solve_soa,
@@ -45,7 +53,7 @@ from sks_tpu_torch.kernels.sks_cuda import (  # noqa: F401
 class SolveKernel(NamedTuple):
     """One batched 4-point solve kernel: (8, B) minimal sets -> (9, B)."""
 
-    key: str  # C entry points sks_<key>_{f32,bf16}; its LAUNCHES key
+    key: str  # its LAUNCHES key; C entry points sks_<key>_<storage dtype>
     kernel: Callable[[Tensor, Tensor], Tensor]
     plain: Callable[[Tensor, Tensor], Tensor]
     source: str  # the CUDA source, from the repository root
@@ -73,4 +81,25 @@ SOLVE_KERNELS = {
     "ndlt": SolveKernel("ndlt_solve", ndlt_solve_soa, ndlt_solve_soa_plain,
                         "sks_tpu_torch/csrc/baselines.cu",
                         f"{_BASELINES}:108"),
+}
+
+
+def _fp64(kind: str) -> SolveKernel:
+    """The K5 instance of the JAX package's ``kind``."""
+    return SolveKernel(
+        f"fp64_{kind}", functools.partial(fp64_solve_soa, kind=kind),
+        functools.partial(fp64_solve_soa_plain, kind=kind),
+        "sks_tpu_torch/csrc/fp64.cu", "sks_tpu/kernels/df64_pallas.py:141")
+
+
+#: Solver name (as in ``ops.SOLVERS_H``) -> its float64 batched solve, the
+#: K5 instance of its JAX kind: (8, B) float32 or float64 minimal sets ->
+#: (9, B) float64, h22 = 1.
+FP64_SOLVE_KERNELS = {
+    "aca": _fp64("aca"),
+    "sks": _fp64("sks"),
+    "rho_ge": _fp64("ge"),
+    "gpt_lu": _fp64("gpt"),
+    "ho": _fp64("ho"),
+    "ndlt": _fp64("ndlt"),
 }

@@ -20,7 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOLVE_KERNELS", "find_nvcc", "load_library"]
+__all__ = ["FP64_KINDS", "NVCC_FLAGS", "SOLVE_KERNELS", "find_nvcc",
+           "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -66,6 +67,11 @@ def find_nvcc() -> str:
 SOLVE_KERNELS = ("aca_solve", "sks_solve", "ge_solve", "gpt_solve",
                  "ho_solve", "ndlt_solve")
 
+#: The kinds of K5, the float64 batched solve (``csrc/fp64.cu``), one C entry
+#: point per input storage dtype: ``sks_fp64_<kind>_{f32,f64}(src, tar, out,
+#: B, stream)``, always float64 out.  The JAX package's kinds.
+FP64_KINDS = ("aca", "sks", "ge", "gpt", "ho", "ndlt")
+
 
 def _sources() -> list[Path]:
     """The translation units: every ``csrc/*.cu``."""
@@ -83,11 +89,14 @@ def _digest(root: Path = _CSRC) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
-    for kernel in SOLVE_KERNELS:
-        for dtype in ("f32", "bf16"):
-            fn = getattr(lib, f"sks_{kernel}_{dtype}")
-            fn.argtypes = [vp, vp, vp, ll, vp]
-            fn.restype = ctypes.c_int
+    solves = [f"sks_{kernel}_{dtype}" for kernel in SOLVE_KERNELS
+              for dtype in ("f32", "bf16")]
+    solves += [f"sks_fp64_{kind}_{dtype}" for kind in FP64_KINDS
+               for dtype in ("f32", "f64")]
+    for name in solves:
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, ll, vp]
+        fn.restype = ctypes.c_int
     for name in ("sks_aca_solve_score_f32", "sks_aca_solve_score_bf16"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, ctypes.c_float, ctypes.c_int, vp, ll,

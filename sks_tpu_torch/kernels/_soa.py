@@ -14,10 +14,15 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from sks_tpu_torch.kernels._build import SOLVE_KERNELS, load_library
+from sks_tpu_torch.kernels._build import (
+    FP64_KINDS,
+    SOLVE_KERNELS,
+    load_library,
+)
 
 #: Kernel launches per kernel since the last reset (plain runs not counted).
-LAUNCHES = dict.fromkeys(("aca_solve_score", *SOLVE_KERNELS), 0)
+LAUNCHES = dict.fromkeys(
+    ("aca_solve_score", *SOLVE_KERNELS, *(f"fp64_{k}" for k in FP64_KINDS)), 0)
 
 _STORAGE = (torch.float32, torch.bfloat16)
 
@@ -33,17 +38,17 @@ def from_soa_h(h: Tensor) -> Tensor:
     return h.T.reshape(h.shape[1], 3, 3)
 
 
-def check_soa(src: Tensor, tar: Tensor) -> None:
-    """Raise unless src and tar are (8, B), contiguous, one float32 or
-    bfloat16 dtype, on one device."""
+def check_soa(src: Tensor, tar: Tensor, storage=_STORAGE) -> None:
+    """Raise unless src and tar are (8, B), contiguous, one dtype of
+    ``storage``, on one device."""
     if src.dim() != 2 or src.shape[0] != 8 or src.shape != tar.shape:
         raise ValueError(
             f"src and tar must both be (8, B); got {tuple(src.shape)} and "
             f"{tuple(tar.shape)}"
         )
-    if src.dtype not in _STORAGE or tar.dtype != src.dtype:
+    if src.dtype not in storage or tar.dtype != src.dtype:
         raise TypeError(
-            f"src and tar must share a float32 or bfloat16 dtype; got "
+            f"src and tar must share one dtype of {storage}; got "
             f"{src.dtype} and {tar.dtype}"
         )
     if src.device != tar.device:
@@ -74,6 +79,22 @@ def solve_soa_plain(core, src: Tensor, tar: Tensor) -> Tensor:
     return torch.stack(core(*s, *t)).to(src.dtype)
 
 
+def launch_soa(symbol: str, key: str, src: Tensor, tar: Tensor,
+               out: Tensor) -> Tensor:
+    """Launch the C entry point ``symbol`` (see ``_build``) on checked CUDA
+    (8, B) minimal sets into ``out`` (9, B); count it in ``LAUNCHES[key]``."""
+    b = src.shape[1]
+    if b == 0:
+        return out
+    fn = getattr(load_library(), symbol)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(src.data_ptr(), tar.data_ptr(), out.data_ptr(), b, stream)
+    check_launch(err, key)
+    LAUNCHES[key] += 1
+    return out
+
+
 def solve_soa(name: str, core, src: Tensor, tar: Tensor) -> Tensor:
     """Run the batched 4-point solve kernel ``name`` (C entry points
     ``sks_<name>_{f32,bf16}``, see ``_build.SOLVE_KERNELS``) on (8, B)
@@ -84,16 +105,6 @@ def solve_soa(name: str, core, src: Tensor, tar: Tensor) -> Tensor:
     check_soa(src, tar)
     if device_kind(src) == "cpu":
         return solve_soa_plain(core, src, tar)
-    lib = load_library()
-    b = src.shape[1]
-    out = torch.empty((9, b), dtype=src.dtype, device=src.device)
-    if b == 0:
-        return out
-    fn = getattr(lib, f"sks_{name}_"
-                      f"{'f32' if src.dtype == torch.float32 else 'bf16'}")
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(src.data_ptr(), tar.data_ptr(), out.data_ptr(), b, stream)
-    check_launch(err, name)
-    LAUNCHES[name] += 1
-    return out
+    out = torch.empty((9, src.shape[1]), dtype=src.dtype, device=src.device)
+    dtype = "f32" if src.dtype == torch.float32 else "bf16"
+    return launch_soa(f"sks_{name}_{dtype}", name, src, tar, out)

@@ -3,7 +3,8 @@
 Every solver maps ``(..., 4, 2) x (..., 4, 2) -> (..., 3, 3)`` (NDLT and HO
 accept ``N >= 4`` points), broadcasts over leading batch dims, and preserves
 dtype.  The registries hold the six solvers of the reference benchmark
-matrix, as ``sks_tpu.ops`` does.
+matrix, as ``sks_tpu.ops`` does.  ``ops.fp64`` holds their float64 forms,
+the counterparts of ``sks_tpu.ops.df64``.
 """
 
 from sks_tpu_torch.ops.aca import aca, aca_h, aca_valid_mask  # noqa: F401
@@ -17,6 +18,19 @@ from sks_tpu_torch.ops.ndlt import ndlt, ndlt_h  # noqa: F401
 from sks_tpu_torch.ops.ho import ho, ho_h  # noqa: F401
 from sks_tpu_torch.ops.gpt import gpt_lu  # noqa: F401
 from sks_tpu_torch.ops.ge import rho_ge  # noqa: F401
+from sks_tpu_torch.ops.fp64 import (  # noqa: F401
+    FP64_CORES,
+    SOLVERS_FP64_H,
+    aca_fp64,
+    aca_fp64_h,
+    ge_fp64_h,
+    gpt_fp64_h,
+    ho_fp64_h,
+    ndlt_fp64_h,
+    residual2_fp64,
+    sks_fp64,
+    sks_fp64_h,
+)
 from sks_tpu_torch.ops import linalg  # noqa: F401
 
 

@@ -9,8 +9,10 @@ Two formulations, as in the JAX package: :func:`ho_h`, the N-point weighted
 matrix form with the closed-form 3x3 eigensolver (the registered solver),
 and :func:`ho_core`, the straight-line minimal-set form.
 ``ho_core(eig_method='jacobi')`` is the plain version of the CUDA kernel
-``ho_solve_soa`` and the specification of its body (``csrc/baselines.cu``).
-The JAX package's double-float branches become native fp64 with kernel K5.
+``ho_solve_soa`` and the specification of its body (``csrc/baselines.cuh``).
+The JAX package's double-float branch becomes native fp64:
+``ho_core(eig_method='invit64')``, the plain version of the HO instance of K5
+(``fp64_solve_soa``) and its body's specification.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from torch import Tensor
 
 from sks_tpu_torch.ops.linalg import (
+    invit_smallest_col_core,
     jacobi_smallest_col_core,
     mm_highest as _mm,
     smallest_eigvec3_core,
@@ -42,17 +45,30 @@ def ho_core(
     the math of :func:`ho_h` for 4 unweighted points.  Returns the 9
     homography entries row-major, up to scale.
 
-    ``eig_method``: 'closed3' (trigonometric closed form) or 'jacobi'
-    (10 fixed sweeps of component Jacobi; the kernel's form).
+    ``eig_method``: 'closed3' (trigonometric closed form), 'jacobi' (10
+    fixed sweeps of component Jacobi; the K4 kernel's form) or 'invit64',
+    the float64 branch: the JAX package's double-float branch in native
+    fp64 (the K5 kernel's form).  It floors the scale by adding the float32
+    ``tiny`` instead of taking the max, seeds with 4 float32 Jacobi sweeps
+    on the 3x3 rounded to float32 (``Tensor.float()``) and widened back, and
+    runs inverse iteration shifted by ``2^-40 trace`` with 2 solves.  Feed
+    it float64 components.
     """
-    if eig_method not in ("closed3", "jacobi"):
+    if eig_method not in ("closed3", "jacobi", "invit64"):
         raise ValueError(f"unknown eig_method {eig_method!r}")
+    invit64 = eig_method == "invit64"
     dtype, device = x0.dtype, x0.device
     # A tensor, not a Python float: ``float / tensor`` is a reciprocal and a
     # product in PyTorch (two roundings), ``tensor / tensor`` one division.
     sqrt2 = torch.full((), math.sqrt(2.0), dtype=dtype, device=device)
-    tiny = torch.finfo(dtype).tiny
+    tiny = torch.finfo(torch.float32 if invit64 else dtype).tiny
     quarter = 0.25
+
+    def floor_tiny(v):
+        if invit64:
+            return torch.where(v > tiny, v, v + tiny)
+        # clamp propagates NaN, as jnp.maximum does.
+        return torch.clamp(v, min=tiny)
 
     def iso(xs, ys):
         cx = (xs[0] + xs[1] + xs[2] + xs[3]) * quarter
@@ -63,8 +79,7 @@ def ho_core(
             sum(torch.sqrt(dx[i] * dx[i] + dy[i] * dy[i]) for i in range(4))
             * quarter
         )
-        # clamp propagates NaN, as jnp.maximum does.
-        s = sqrt2 / torch.clamp(mean, min=tiny)
+        s = sqrt2 / floor_tiny(mean)
         return [d * s for d in dx], [d * s for d in dy], cx, cy, s
 
     sx, sy, cx1, cy1, s1 = iso((x0, x1, x2, x3), (y0, y1, y2, y3))
@@ -127,10 +142,14 @@ def ho_core(
     d11 = sum(r[1] * r[1] for r in rx) + sum(r[1] * r[1] for r in ry)
     d12 = sum(r[1] * r[2] for r in rx) + sum(r[1] * r[2] for r in ry)
     d22 = sum(r[2] * r[2] for r in rx) + sum(r[2] * r[2] for r in ry)
+    dmat = [[d00, d01, d02], [d01, d11, d12], [d02, d12, d22]]
     if eig_method == "jacobi":
-        gvec = jacobi_smallest_col_core(
-            [[d00, d01, d02], [d01, d11, d12], [d02, d12, d22]], sweeps=10
-        )
+        gvec = jacobi_smallest_col_core(dmat, sweeps=10)
+    elif invit64:
+        seed = jacobi_smallest_col_core(
+            [[e.float() for e in row] for row in dmat], sweeps=4)
+        gvec = invit_smallest_col_core(dmat, [v.to(dtype) for v in seed],
+                                       shift_rel=2.0 ** -40, solves=2)
     else:
         gvec = smallest_eigvec3_core(d00, d01, d02, d11, d12, d22)
 

@@ -9,8 +9,9 @@ weighted matrix form (optional per-point weights make padded point sets and
 IRLS reweighting work without data-dependent shapes), and :func:`ndlt_core`,
 the straight-line minimal-set form.  ``ndlt_core(eig='invit')`` is the plain
 version of the CUDA kernel ``ndlt_solve_soa`` and the specification of its
-body (``csrc/baselines.cu``).  The JAX package's double-float branches become
-native fp64 with kernel K5.
+body (``csrc/baselines.cuh``).  The JAX package's double-float branch becomes
+native fp64: ``ndlt_core(eig='invit64')``, the plain version of the NDLT
+instance of K5 (``fp64_solve_soa``) and its body's specification.
 """
 
 from __future__ import annotations
@@ -45,15 +46,28 @@ def ndlt_core(
     ``1, -X', -Y', X'^2 + Y'^2``: 24 scalar sums.  The smallest eigenvector
     comes from ``sweeps`` sweeps of component Jacobi (``eig='jacobi'``) or
     from shifted inverse iteration seeded by 3 Jacobi sweeps
-    (``eig='invit'``, the kernel's form).  Returns 9 entries row-major, up
-    to scale.
+    (``eig='invit'``, the K4 kernel's form).  Returns 9 entries row-major,
+    up to scale.
+
+    ``eig='invit64'`` is the float64 branch, the JAX package's double-float
+    branch in native fp64 (the K5 kernel's form): the scale floor adds
+    ``tiny`` instead of taking the max, the seed is 3 float32 Jacobi sweeps
+    on the normal matrix rounded to float32 (``Tensor.float()``) and widened
+    back, and the inverse iteration shifts by ``2^-40 trace`` and runs 2
+    solves.  Feed it float64 components.
     """
-    if eig not in ("jacobi", "invit"):
+    if eig not in ("jacobi", "invit", "invit64"):
         raise ValueError(f"unknown eig {eig!r}")
     quarter = 0.25
     # Hartley scales divide by the mean |dev|, which is >= a pixel for any
     # non-coincident quad; the f32-tiny floor only guards all-equal points.
     tiny = torch.finfo(torch.float32).tiny
+
+    def floor(dev):
+        if eig == "invit64":
+            return torch.where(dev > tiny, dev, dev + tiny)
+        # clamp propagates NaN, as jnp.maximum does.
+        return torch.clamp(dev, min=tiny)
 
     def hartley(xs, ys):
         cx = (xs[0] + xs[1] + xs[2] + xs[3]) * quarter
@@ -64,9 +78,8 @@ def ndlt_core(
                 + torch.abs(dx[3])) * quarter
         devy = (torch.abs(dy[0]) + torch.abs(dy[1]) + torch.abs(dy[2])
                 + torch.abs(dy[3])) * quarter
-        # clamp propagates NaN, as jnp.maximum does.
-        sx = 1.0 / torch.clamp(devx, min=tiny)
-        sy = 1.0 / torch.clamp(devy, min=tiny)
+        sx = 1.0 / floor(devx)
+        sy = 1.0 / floor(devy)
         return ([d * sx for d in dx], [d * sy for d in dy], cx, cy, sx, sy)
 
     nx, ny, cx1, cy1, sx1, sy1 = hartley((x0, x1, x2, x3), (y0, y1, y2, y3))
@@ -106,6 +119,11 @@ def ndlt_core(
 
     if eig == "invit":
         h = invit_smallest_col_core(ltl)
+    elif eig == "invit64":
+        seed = jacobi_smallest_col_core(
+            [[e.float() for e in row] for row in ltl], sweeps=3)
+        h = invit_smallest_col_core(ltl, [v.to(x0.dtype) for v in seed],
+                                    shift_rel=2.0 ** -40, solves=2)
     else:
         h = jacobi_smallest_col_core(ltl, sweeps=sweeps)
 

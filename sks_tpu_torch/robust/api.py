@@ -16,12 +16,25 @@ from sks_tpu_torch.robust.ransac import (
 )
 
 __all__ = [
+    "fused_by_default",
     "find_homography",
     "get_perspective_transform",
     "get_affine_transform",
 ]
 
 _METHODS = ("ransac", "msac", "magsac", "lmeds", "fused")
+
+
+def fused_by_default(device_type: str, dtype: torch.dtype) -> bool:
+    """Whether an eligible fit on points of this device type and dtype takes
+    the fused solve+score kernel without ``method='fused'``.
+
+    The kernel solves and scores in float32, so only float32 and bfloat16
+    points on CUDA go there.  float64 points keep the precision they were
+    given, on the general path in float64 (on CUDA its batched solve is K5),
+    as the JAX package keeps them off its TPU-only fused route.
+    """
+    return device_type == "cuda" and dtype in (torch.float32, torch.bfloat16)
 
 
 def find_homography(
@@ -59,9 +72,10 @@ def find_homography(
       point_mask: optional (..., N) bool validity for padded point sets.
       bf16_hypotheses: store minimal sets in bfloat16 on the fused path.
 
-    On CUDA tensors, eligible fits (method 'ransac' / 'msac' / 'magsac',
-    solver 'aca', no ``confidence``) take the fused kernel path, as the JAX
-    package does on a TPU; on CPU tensors they take the general path.
+    On float32 or bfloat16 CUDA tensors, eligible fits (method 'ransac' /
+    'msac' / 'magsac', solver 'aca', no ``confidence``) take the fused
+    kernel path, as the JAX package does on a TPU (:func:`fused_by_default`);
+    float64 and CPU tensors take the general path.
 
     Returns:
       (H (..., 3, 3) normalized to H[..., 2, 2] = 1, mask (..., N) bool).
@@ -80,7 +94,7 @@ def find_homography(
     fused = method == "fused" or (
         method in ("ransac", "msac", "magsac")
         and solver == "aca"
-        and src.device.type == "cuda"
+        and fused_by_default(src.device.type, src.dtype)
     )
     if method == "fused":
         solver = "aca"

@@ -12,10 +12,12 @@ On CUDA tensors the fused path (:func:`ransac_homography_fused`) solves and
 scores all B hypotheses in the hand-written kernel
 ``sks_tpu_torch.kernels.aca_cuda.aca_solve_score_soa``; on CPU tensors the
 same call runs that kernel's plain version.  The general path solves its
-float32 batch on CUDA in the kernel whose body is the registered solver's
-own core: K1 for 'aca', K3 for 'sks', K4-GE for 'rho_ge'.  'gpt_lu', 'ho'
-and 'ndlt' stay on their eager ``SOLVERS_H`` forms, which are other
+batch on CUDA in the kernel whose body is the registered solver's own core:
+a float32 batch in K1 for 'aca', K3 for 'sks', K4-GE for 'rho_ge'; a float64
+batch of those three in their instances of K5, the float64 solve.  'gpt_lu',
+'ho' and 'ndlt' stay on their eager ``SOLVERS_H`` forms, which are other
 formulations than their kernels' cores (as in the JAX package).
+``df64_scoring=True`` scores in float64 (``ops.fp64.residual2_fp64``).
 
 Randomness: draws come from an explicit ``torch.Generator``.  Its stream is
 not ``jax.random``'s, so every entry point also takes ``indices=``, a (B, 4)
@@ -31,9 +33,15 @@ import torch
 from torch import Tensor
 
 from sks_tpu_torch.geom.homography import apply_homography, inv_h
-from sks_tpu_torch.kernels import SOLVE_KERNELS, from_soa_h, to_soa
+from sks_tpu_torch.kernels import (
+    FP64_SOLVE_KERNELS,
+    SOLVE_KERNELS,
+    from_soa_h,
+    to_soa,
+)
 from sks_tpu_torch.kernels.aca_cuda import aca_solve_score_soa
 from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask, sks_valid_mask
+from sks_tpu_torch.ops.fp64 import residual2_fp64
 from sks_tpu_torch.ops.ndlt import ndlt_h
 
 __all__ = [
@@ -62,10 +70,6 @@ _ADAPTIVE_LATER = (
 _PROSAC_LATER = (
     "sampling='prosac' is not ported yet; it comes with "
     "ransac_homography_adaptive (ROADMAP.md Queue A, next item)"
-)
-_DF64_LATER = (
-    "df64_scoring is not ported yet; it becomes native fp64 scoring with "
-    "kernel K5 (ROADMAP.md Queue B)"
 )
 
 
@@ -114,8 +118,9 @@ def magsac_weights(r2: Tensor, sigma_max, k: float = _MAGSAC_K) -> Tensor:
 class RansacConfig:
     """Static RANSAC parameters: the fields and defaults of the JAX package's.
 
-    ``sampling='prosac'`` and ``df64_scoring=True`` are not ported yet and
-    raise ``NotImplementedError``.
+    ``sampling='prosac'`` is not ported yet and raises
+    ``NotImplementedError``.  ``df64_scoring`` keeps the JAX package's name;
+    here it scores in native float64.
     """
 
     num_hypotheses: int = 2048
@@ -129,7 +134,8 @@ class RansacConfig:
     # LO-RANSAC candidate count: the top-K hypotheses are polished and the
     # winner is selected post-polish.
     lo_candidates: int = 4
-    # fp64-grade residual scoring (not ported yet).
+    # Score residuals in float64 (ops.fp64.residual2_fp64): the JAX package's
+    # double-float scoring, in native fp64.
     df64_scoring: bool = False
     # Final geometric polish: annealed-threshold Levenberg-Marquardt on the
     # selected model's consensus (robust.polish.anneal_polish).
@@ -162,24 +168,29 @@ def sample_minimal_sets(generator: torch.Generator, num_points: int,
                          device=generator.device)
 
 
-#: Solvers whose batched solve kernel has the registered solver's own core as
-#: its body (so kernel and eager op agree bit for bit on the card).  The
-#: kernels of 'gpt_lu', 'ho' and 'ndlt' run other formulations than
+#: Solvers whose batched solve kernels have the registered solver's own core
+#: as their body (so kernel and eager op agree bit for bit on the card, K5's
+#: up to its h22 division).  The kernels of 'gpt_lu', 'ho' and 'ndlt' run
+#: other formulations than
 #: ``SOLVERS_H`` ('unrolled' GPT, closed3 HO, the N-point NDLT).
 _KERNEL_SOLVERS = ("aca", "sks", "rho_ge")
 
 
 def _solve_batch(name: str, s4: Tensor, t4: Tensor) -> Tensor:
-    """(B, 4, 2) minimal sets -> (B, 3, 3) up-to-scale hypotheses.
+    """(B, 4, 2) minimal sets -> (B, 3, 3) hypotheses (any scale).
 
-    A float32 batch on CUDA goes through the solver's kernel where it is
-    the same core (``_KERNEL_SOLVERS``); everything else through
-    ``SOLVERS_H``.
+    A float32 or float64 batch on CUDA goes through the solver's kernel
+    where it is the same core (``_KERNEL_SOLVERS``): float32 in its
+    ``SOLVE_KERNELS`` kernel (up to scale), float64 in its K5 instance
+    (``FP64_SOLVE_KERNELS``, h22 = 1; scoring ignores the scale).
+    Everything else goes through ``SOLVERS_H``.
     """
-    if (name in _KERNEL_SOLVERS and s4.device.type == "cuda"
-            and s4.dtype == torch.float32):
-        kernel = SOLVE_KERNELS[name].kernel
-        return from_soa_h(kernel(to_soa(s4), to_soa(t4)))
+    if name in _KERNEL_SOLVERS and s4.device.type == "cuda":
+        kernels = {torch.float32: SOLVE_KERNELS,
+                   torch.float64: FP64_SOLVE_KERNELS}.get(s4.dtype)
+        if kernels is not None:
+            kernel = kernels[name].kernel
+            return from_soa_h(kernel(to_soa(s4), to_soa(t4)))
     return SOLVERS_H[name](s4, t4)
 
 
@@ -223,10 +234,12 @@ def _residual2(h: Tensor, src: Tensor, tar: Tensor,
                df64: bool = False) -> Tensor:
     """Squared symmetric transfer error of hypotheses (B,3,3) on points (N,2).
 
-    Returns (B, N).
+    Returns (B, N).  ``df64=True`` computes it in float64
+    (:func:`sks_tpu_torch.ops.fp64.residual2_fp64`), returned in the points'
+    dtype.
     """
     if df64:
-        raise NotImplementedError(_DF64_LATER)
+        return residual2_fp64(h, src, tar)
     d1 = apply_homography(h, src) - tar[..., None, :, :]
     hinv = inv_h(h)
     d2 = apply_homography(hinv, tar) - src[..., None, :, :]
@@ -490,8 +503,6 @@ def _refine_and_pack(h_top, sc_top, inl_best, src, tar, config, point_mask):
 
 
 def _check_ported(config: RansacConfig) -> None:
-    if config.df64_scoring:
-        raise NotImplementedError(_DF64_LATER)
     if config.sampling == "prosac":
         raise NotImplementedError(_PROSAC_LATER)
 

@@ -7,14 +7,15 @@ GPU machine without it, from the repository root:
     python -m pytest tests/test_torch_cuda.py -q -o addopts="" --noconftest
 
 Sizes are the main path's: K1, K3 and the K4 instances at B = 2^18, a
-ragged B and B = 1; K2 at B = 8192 minimal sets against N = 2,047 points.
+ragged B and B = 1; K2 at B = 8192 minimal sets against N = 2,047 points;
+the six K5 kinds at B = 2^20 and 1,000, from float32 and float64 storage.
 """
 
 import pytest
 import torch
 
 from sks_tpu_torch.geom.homography import normalize_h
-from sks_tpu_torch.kernels import SOLVE_KERNELS
+from sks_tpu_torch.kernels import FP64_SOLVE_KERNELS, SOLVE_KERNELS
 from sks_tpu_torch.kernels import aca_cuda as K
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 from sks_tpu_torch.robust.ransac import sample_minimal_sets
@@ -144,5 +145,49 @@ def test_find_homography_sks_on_cuda_runs_k3(dev):
     assert K.LAUNCHES["sks_solve"] == before["sks_solve"] + 1
     assert K.LAUNCHES["aca_solve_score"] == before["aca_solve_score"]
     assert h.device == src.device and mask.all()
+    torch.testing.assert_close(normalize_h(h, "fro"),
+                               normalize_h(h_true, "fro"), atol=2e-3, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def quads64():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    src, tar = random_quad_pairs(g, 1 << 20, torch.float64)
+    return K.to_soa(src), K.to_soa(tar)
+
+
+@pytest.mark.parametrize("name", list(FP64_SOLVE_KERNELS))
+@pytest.mark.parametrize("b", [1 << 20, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_kernel_equals_plain(quads64, name, b, dtype):
+    solve = FP64_SOLVE_KERNELS[name]
+    s = quads64[0][:, :b].to(dtype).contiguous()
+    t = quads64[1][:, :b].to(dtype).contiguous()
+    before = dict(K.LAUNCHES)
+    hk = solve.kernel(s, t)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {**before, solve.key: before[solve.key] + 1}
+    hp = solve.plain(s, t)
+    assert hk.dtype == torch.float64 and hk.shape == (9, b)
+    # The float64 core op for op, its float32 seed rounded as .float() does,
+    # and a true h22 division: equal, a NaN where the plain version has one.
+    assert _equal_nan(hk, hp)
+    assert torch.isfinite(hk).float().mean().item() >= 0.999
+
+
+def test_find_homography_fp64_on_cuda_runs_k5_not_k2(dev):
+    import sks_tpu_torch
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    src, tar, h_true = random_correspondences(g, (), 500, 0.5, torch.float64)
+    before = dict(K.LAUNCHES)
+    h, mask = sks_tpu_torch.find_homography(src, tar, solver="sks")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["fp64_sks"] == before["fp64_sks"] + 1
+    assert K.LAUNCHES["aca_solve_score"] == before["aca_solve_score"]
+    assert K.LAUNCHES["sks_solve"] == before["sks_solve"]
+    assert h.dtype == torch.float64 and h.device == src.device and mask.all()
     torch.testing.assert_close(normalize_h(h, "fro"),
                                normalize_h(h_true, "fro"), atol=2e-3, rtol=0)

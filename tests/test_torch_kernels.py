@@ -40,6 +40,7 @@ from sks_tpu_torch.kernels import aca_cuda as tk
 from sks_tpu_torch.kernels import baselines_cuda as tb
 from sks_tpu_torch.kernels import sks_cuda as ts
 from sks_tpu_torch.kernels import _build
+from sks_tpu_torch.kernels.fp64_cuda import fp64_solve_soa
 from sks_tpu_torch.ops import aca_h
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 
@@ -295,10 +296,14 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
     ts.sks_solve_soa(s_soa, t_soa)
     for fn in tb.SOA_SOLVERS.values():
         fn(s_soa, t_soa)
+    for kind in ("aca", "sks", "ge", "gpt", "ho", "ndlt"):
+        fp64_solve_soa(s_soa, t_soa, kind)
     assert tk.LAUNCHES == before
     assert set(tk.LAUNCHES) == {"aca_solve", "aca_solve_score", "sks_solve",
                                 "ge_solve", "gpt_solve", "ho_solve",
-                                "ndlt_solve"}
+                                "ndlt_solve", "fp64_aca", "fp64_sks",
+                                "fp64_ge", "fp64_gpt", "fp64_ho",
+                                "fp64_ndlt"}
 
 
 def test_build_flags_keep_ieee_scoring():
@@ -306,7 +311,8 @@ def test_build_flags_keep_ieee_scoring():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     sources = _build._sources()
-    assert [p.name for p in sources] == ["aca.cu", "baselines.cu", "sks.cu"]
+    assert [p.name for p in sources] == ["aca.cu", "baselines.cu", "fp64.cu",
+                                         "sks.cu"]
     # The library name follows the sources: an edit rebuilds.
     assert len(_build._digest()) == 16
 

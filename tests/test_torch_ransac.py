@@ -287,8 +287,11 @@ def test_paths_not_ported_yet_raise():
         sks_tpu_torch.find_homography(s, t, confidence=0.99)
     with pytest.raises(NotImplementedError, match="prosac"):
         sks_tpu_torch.find_homography(s, t, sampling="prosac")
-    with pytest.raises(NotImplementedError, match="df64"):
-        tr.ransac_homography(None, s, t, tr.RansacConfig(df64_scoring=True))
+    # df64_scoring fits now (native float64 scoring, ops/fp64.py).
+    res = tr.ransac_homography(None, s, t, tr.RansacConfig(
+        num_hypotheses=64, df64_scoring=True))
+    assert res.h.shape == (3, 3) and torch.isfinite(res.h).all()
+    assert res.inlier_mask.shape == (40,) and int(res.num_inliers) >= 4
     # 'sks' fits now (K3 and ops/sks.py are ported); an unknown name raises.
     h, mask = sks_tpu_torch.find_homography(s, t, solver="sks", max_iters=64)
     assert h.shape == (3, 3) and mask.shape == (40,)
