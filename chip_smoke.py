@@ -16,9 +16,14 @@ synthetic truth, holds the CUDA paths against the port's general path on the
 CPU, and times kernels and path with CUDA events (the port's Table 8, float32
 and float64, beside the reference's CUDA fp64 times).
 
+It also times the ablation instances of the NDLT kernels
+(``sks_tpu_torch/bench/ndlt_ablation.py``) and, as yardsticks that the port
+never calls, the PyTorch calls that do the dominant step of NDLT, HO and GPT.
+
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
-launches on the main path, error against its plain version and times; and last
+launches on the main path, error against its plain version, times and bound
+(``sks_tpu_torch/bench/roofline.py``); and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without the last line.  Without a CUDA device, or outside the
 repository, it exits non-zero at once.  Imports nothing of JAX.
@@ -32,13 +37,20 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line for a phase, with the seconds since the script began."""
+    print(json.dumps({"phase": phase,
+                      "at_s": round(time.perf_counter() - START, 1), **fields}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -75,7 +87,8 @@ def paired_ms(kernel, plain, runs: int = 25, reps: int = 10):
 
 
 def ptxas_entries(log: str) -> list[dict]:
-    """Each kernel's registers and spills from ``nvcc -Xptxas -v`` output."""
+    """Each kernel's registers, static shared memory and spills from
+    ``nvcc -Xptxas -v`` output."""
     out, source = [], None
     for ln in log.splitlines():
         if ln.startswith("== "):
@@ -88,6 +101,9 @@ def ptxas_entries(log: str) -> list[dict]:
                 out[-1]["spill_load_bytes"] = nums[:3]
         elif out and "Used" in ln and "registers" in ln:
             out[-1]["registers"] = int(ln.split("Used")[1].split()[0])
+            out[-1]["static_smem_bytes"] = (
+                int(ln.split("bytes smem")[0].split()[-1])
+                if "bytes smem" in ln else 0)
     return out
 
 
@@ -109,7 +125,7 @@ def main() -> int:
         return 2
 
     import sks_tpu_torch
-    from sks_tpu_torch.bench import fp64_table, table8
+    from sks_tpu_torch.bench import fp64_table, ndlt_ablation, roofline, table8
     from sks_tpu_torch.geom.homography import apply_homography, normalize_h
     from sks_tpu_torch.kernels import FP64_SOLVE_KERNELS, SOLVE_KERNELS, _build
     from sks_tpu_torch.kernels import aca_cuda as K
@@ -138,10 +154,25 @@ def main() -> int:
          precision=torch.get_float32_matmul_precision())
 
     # ---- 2. build ----------------------------------------------------------
+    # The NDLT timing instruments are a library of their own that no kernel
+    # of a path waits for: it compiles beside the checks and is joined at the
+    # ablation phase.
+    def build_ablation():
+        t0 = time.perf_counter()
+        try:
+            _build.load_ablation_library()
+        except Exception as exc:  # re-raised where the thread is joined
+            ablation_build["error"] = exc
+        ablation_build["seconds"] = round(time.perf_counter() - t0, 3)
+
+    ablation_build = {}
+    ablation_thread = threading.Thread(target=build_ablation)
     t0 = time.perf_counter()
+    ablation_thread.start()
     _build.load_library()
     emit("build", seconds=round(time.perf_counter() - t0, 3), nvcc=_build.find_nvcc(),
-         flags=list(_build.NVCC_FLAGS), ptxas=ptxas_entries(_build.BUILD_LOG))
+         flags=list(_build.NVCC_FLAGS),
+         ptxas=ptxas_entries(_build.BUILD_LOGS.get("kernels", "")))
 
     # kernel -> (source in the repo, the TPU kernel it replaces).
     kernel_sources = {
@@ -177,40 +208,83 @@ def main() -> int:
     emit("k1_vs_plain", cases=k1)
 
     # ---- 4. K2 against its plain version -----------------------------------
+    # Every per-point gain is the plain version's, bit for bit (-fmad=false,
+    # IEEE division); only the order of the sum over points differs.  So
+    # 'inliers' (0/1 gains and weights: integer sums) must be equal, and
+    # 'msac' / 'magsac' within rtol 1e-5 + atol 1e-4 of the plain version's
+    # pairwise sum.  The kernel's own order is fixed: the same launch twice
+    # must give the same bits.  Shapes: the default and the large hypothesis
+    # budget, a ragged N, an N smaller than one warp's slice, weights that
+    # drop a tenth of the points, one pair and a pair axis of 8.
+    def score_problem(n, pairs, b):
+        """``pairs`` problems of n matches (half of them junk) with b minimal
+        sets each: src, tar (pairs, 8, b), pts (pairs, 4, n), w (pairs, n)."""
+        out = []
+        for _ in range(pairs):
+            src, tar, _ = random_correspondences(gen, (), n, 0.5)
+            tar = tar.clone()
+            tar[:n // 2] = torch.rand((n // 2, 2), generator=gen,
+                                      device=dev) * 640.0
+            idx = sample_minimal_sets(gen, n, b)
+            out.append((K.to_soa(src[idx]), K.to_soa(tar[idx]),
+                        torch.cat([src.T, tar.T]).contiguous(),
+                        (torch.rand(n, generator=gen, device=dev)
+                         >= 0.1).float()))
+        return tuple(torch.stack(x) for x in zip(*out))
+
     b2 = 65536
     k2 = []
-    for n in (2000, 2047):
-        src, tar, _ = random_correspondences(gen, (), n, 0.5)
-        n_out = n // 2
-        tar = tar.clone()
-        tar[:n_out] = torch.rand((n_out, 2), generator=gen, device=dev) * 640.0
-        idx = sample_minimal_sets(gen, n, b2)
-        s, t = K.to_soa(src[idx]), K.to_soa(tar[idx])
-        pts = torch.cat([src.T, tar.T]).contiguous()
-        w = (torch.rand(n, generator=gen, device=dev) >= 0.1).float()
-        for scoring in ("inliers", "msac", "magsac"):
-            thr = fused_kernel_threshold(
-                RansacConfig(threshold=3.0, scoring=scoring))
-            sk = K.aca_solve_score_soa(s, t, pts, thr, w, scoring)
-            sp = K.aca_solve_score_soa_plain(s, t, pts, thr, w, scoring)
-            torch.cuda.synchronize()
-            d = (sk - sp).abs()
-            maxd = d.max().item()
-            errors["aca_solve_score"] = max(errors["aca_solve_score"], maxd)
-            case = {"N": n, "scoring": scoring, "max_abs_diff": maxd,
-                    "max_score": sk.max().item()}
-            if scoring == "inliers":
-                frac = (d == 0).float().mean().item()
-                case["equal_frac"] = frac
-                check(frac >= 0.999 and maxd <= 1.0,
-                      f"K2 inliers N={n}: equal on {frac}, max diff {maxd}")
-            else:
-                ok = torch.allclose(sk, sp, rtol=1e-5, atol=1e-4)
+    k2_rel = 0.0
+    for b, n, pairs in ((2048, 2000, 1), (b2, 2000, 1), (2048, 1999, 1),
+                        (2048, 20, 1), (2048, 2000, 8), (2048, 1999, 8),
+                        (2048, 20, 8)):
+        s, t, pts, w = score_problem(n, pairs, b)
+        if pairs == 1:  # the two-dimensional call
+            s, t, pts, w = s[0], t[0], pts[0], w[0]
+        for dt in (torch.float32, torch.bfloat16):
+            sd, td = s.to(dt), t.to(dt)
+            for scoring in ("inliers", "msac", "magsac"):
+                thr = fused_kernel_threshold(
+                    RansacConfig(threshold=3.0, scoring=scoring))
+                sk = K.aca_solve_score_soa(sd, td, pts, thr, w, scoring)
+                again = K.aca_solve_score_soa(sd, td, pts, thr, w, scoring)
+                sp = K.aca_solve_score_soa_plain(sd, td, pts, thr, w, scoring)
+                torch.cuda.synchronize()
+                d = (sk - sp).abs()
+                maxd = d.max().item()
                 rel = (d / sp.abs().clamp(min=1e-3)).max().item()
-                case["max_rel_diff"] = rel
-                check(ok, f"K2 {scoring} N={n}: max rel diff {rel}")
-            k2.append(case)
-    emit("k2_vs_plain", B=b2, cases=k2)
+                errors["aca_solve_score"] = max(errors["aca_solve_score"], maxd)
+                case = {"B": b, "N": n, "pairs": pairs, "dtype": str(dt)[6:],
+                        "scoring": scoring, "grid": K.score_grid(pairs, b, n),
+                        "max_abs_diff": maxd, "max_rel_diff": rel,
+                        "max_score": sk.max().item(),
+                        "same_twice": torch.equal(sk, again),
+                        "equal": torch.equal(sk, sp)}
+                k2.append(case)
+                check(case["same_twice"], f"K2 is not reproducible: {case}")
+                check(sk.shape == sp.shape, f"K2 shape: {case}")
+                if scoring == "inliers":
+                    check(case["equal"], f"K2 inliers differ from plain: {case}")
+                else:
+                    k2_rel = max(k2_rel, rel)
+                    check(torch.allclose(sk, sp, rtol=1e-5, atol=1e-4),
+                          f"K2 {scoring} beyond rtol 1e-5 + atol 1e-4: {case}")
+        if pairs > 1:
+            # The pair-axis launch against one launch per pair: the same bits
+            # in every scoring (the chunks, which fix the order of a score's
+            # sum, do not depend on the pair count).
+            for scoring in ("inliers", "msac", "magsac"):
+                thr = fused_kernel_threshold(
+                    RansacConfig(threshold=3.0, scoring=scoring))
+                one = K.aca_solve_score_soa(s, t, pts, thr, w, scoring)
+                each = torch.stack([
+                    K.aca_solve_score_soa(s[i], t[i], pts[i], thr, w[i],
+                                          scoring) for i in range(pairs)])
+                check(torch.equal(one, each), "K2 pair axis != per-pair "
+                      f"launches at B={b} N={n}, {scoring}")
+    emit("k2_vs_plain", bound="inliers equal; msac, magsac rtol 1e-5 + atol "
+         "1e-4 (sum order); same launch twice bit-equal",
+         max_rel_diff_soft=k2_rel, cases=k2)
 
     # ---- 4b. K3 and the four K4 instances against their plain versions -----
     # Bound: equal, value for value (a NaN where the plain version has one),
@@ -310,6 +384,32 @@ def main() -> int:
     for name, ((src, tar, h_true, true_inl), iters) in problems.items():
         fits[name] = sks_tpu_torch.find_homography(
             src, tar, ransac_reproj_threshold=3.0, max_iters=iters)
+    # A batched fit over 8 pairs: every pair's minimal sets drawn first, one
+    # K2 launch for the 8, then the tail pair by pair; against 8 single fits
+    # drawing from the same generator in turn.
+    # Inlier counting on all 8, and the soft MSAC score on the first 2.
+    pairs8 = [problem(10 + i, 2000, 0.5) for i in range(8)]
+    src8 = torch.stack([p[0] for p in pairs8])
+    tar8 = torch.stack([p[1] for p in pairs8])
+    batched_fits = {}
+    for method, count in (("ransac", 8), ("msac", 2)):
+        before8 = K.LAUNCHES["aca_solve_score"]
+        h_b, mask_b = sks_tpu_torch.find_homography(
+            src8[:count], tar8[:count], method=method,
+            ransac_reproj_threshold=3.0, max_iters=2048,
+            generator=torch.Generator(device=dev).manual_seed(8))
+        torch.cuda.synchronize()
+        k2_launches = K.LAUNCHES["aca_solve_score"] - before8
+        g8 = torch.Generator(device=dev).manual_seed(8)
+        singles = [sks_tpu_torch.find_homography(
+            src8[i], tar8[i], method=method, ransac_reproj_threshold=3.0,
+            max_iters=2048, generator=g8) for i in range(count)]
+        batched_fits[method] = (h_b, mask_b, k2_launches, singles)
+    # Array inputs go to the card (a caller asks for the CPU with CPU tensors).
+    h_arr, mask_arr = sks_tpu_torch.find_homography(
+        problems["50pct"][0][0].cpu().numpy(),
+        problems["50pct"][0][1].cpu().numpy(),
+        ransac_reproj_threshold=3.0, max_iters=2048)
     # The general path with a kernel-backed batched solve: K3 and K4-GE.
     for solver in ("sks", "rho_ge"):
         src, tar = problems["50pct"][0][:2]
@@ -388,6 +488,28 @@ def main() -> int:
                       "num_inliers": int(mask.sum().item())}
         check(err < 1.0 and agree >= 0.95, f"{name}: {main[name]}")
     main["launches_fp64_fits"] = launches_fp64_fits
+    for method, (h_b, mask_b, k2_launches, singles) in batched_fits.items():
+        count = len(singles)
+        batched = {"pairs": count, "method": method,
+                   "k2_launches": k2_launches, "pairs_out": []}
+        for i, (_, _, h_true, true_inl) in enumerate(pairs8[:count]):
+            err = (apply_homography(h_b[i], corners)
+                   - apply_homography(h_true, corners)
+                   ).norm(dim=-1).mean().item()
+            same = (torch.equal(h_b[i], singles[i][0])
+                    and torch.equal(mask_b[i], singles[i][1]))
+            batched["pairs_out"].append({
+                "corner_err_px": err, "equals_single_fit": same,
+                "inlier_agreement":
+                    (mask_b[i] == true_inl).float().mean().item()})
+            check(err < 1.0 and same, f"batched fit, pair {i}: {batched}")
+        check(k2_launches == 1 and h_b.shape == (count, 3, 3)
+              and mask_b.shape == (count, 2000),
+              f"a batched fit must launch K2 once for its pairs: {batched}")
+        main[f"batched_fit_{count}_pairs_{method}"] = batched
+    check(h_arr.device.type == "cuda" and mask_arr.device.type == "cuda"
+          and torch.equal(h_arr, fits["50pct"][0]),
+          "array inputs must be fitted on the card, as the same tensors are")
     check(launches["aca_solve_score"] >= 2 and launches["sks_solve"] >= 2
           and launches["ge_solve"] >= 2
           and all(launches[k] >= 1 for k in kernel_sources),
@@ -440,6 +562,71 @@ def main() -> int:
             src64, tar64, idx, 1e-9)
     emit("port_consistency", **consistency)
 
+    # ---- 6b. what sets the NDLT kernels' time: the ablation instances ------
+    # (csrc/ablation/*.cu; 3-sweep, 3-solve forms must equal the plain
+    # version, the others compute other functions and are only timed).
+    ablation_thread.join()
+    if "error" in ablation_build:
+        raise ablation_build["error"]
+    ablation = ndlt_ablation.run_ablation(batch=b1, runs=5, reps=5)
+    for row in ablation:
+        check(row["equals_plain"] == row["computes_ndlt"],
+              f"ndlt ablation: {row}")
+    emit("ndlt_ablation", card=smi, rows=ablation,
+         build_seconds=ablation_build["seconds"],
+         ptxas=[e for log in _build.BUILD_LOGS.values()
+                for e in ptxas_entries(log) if "Ndlt" in e["entry"]])
+
+    # ---- 6c. yardsticks: the library calls that do the dominant step of
+    # NDLT (9x9 eigh), HO (3x3 eigh) and GPT (8x8 solve), float32.  The port
+    # never calls them, and none computes a kernel's whole function.
+    def yardstick(name, make, call, batches=(10_000, b1), budget_ms=15_000):
+        """Device ms of ``call(make(b))`` per batch size.  A batch whose time,
+        scaled from the one before, would pass ``budget_ms`` is cut to the
+        largest power of two that fits, and says so (``cut_from``)."""
+        rows = []
+        for b in batches:
+            row = {"call": name, "batch": b}
+            if rows and rows[-1]["ms"] * b / rows[-1]["batch"] > budget_ms:
+                fits = budget_ms / rows[-1]["ms"] * rows[-1]["batch"]
+                row.update(batch=max(rows[-1]["batch"],
+                                     1 << int(fits).bit_length() - 1),
+                           cut_from=b)
+            x = make(row["batch"])
+            try:
+                call(x)
+            except RuntimeError as exc:
+                # A yardstick the installed libraries cannot run is reported
+                # as such; no kernel or path of the port depends on it.
+                rows.append({**row, "ms": None,
+                             "error": str(exc).splitlines()[0][:200]})
+                break
+            torch.cuda.synchronize()
+            row["ms"] = statistics.median(
+                table8.device_ms(lambda: call(x), 1) for _ in range(3))
+            rows.append(row)
+        return rows
+
+    def spd(b, n):
+        a = torch.randn((b, n, n), generator=gen, device=dev)
+        return a @ a.transpose(1, 2) + n * torch.eye(n, device=dev)
+
+    yard = (
+        yardstick("torch.linalg.eigh (B, 9, 9)", lambda b: spd(b, 9),
+                  torch.linalg.eigh)
+        + yardstick("torch.linalg.eigh (B, 3, 3)", lambda b: spd(b, 3),
+                    torch.linalg.eigh)
+        # The same eigenvectors of a symmetric PSD matrix by another call.
+        + yardstick("torch.linalg.svd (B, 9, 9)", lambda b: spd(b, 9),
+                    torch.linalg.svd)
+        + yardstick("torch.linalg.svd (B, 3, 3)", lambda b: spd(b, 3),
+                    torch.linalg.svd)
+        + yardstick("torch.linalg.solve (B, 8, 8)",
+                    lambda b: (spd(b, 8), torch.randn((b, 8, 1), generator=gen,
+                                                      device=dev)),
+                    lambda ab: torch.linalg.solve(*ab)))
+    emit("library_yardsticks", card=smi, dtype="float32", rows=yard)
+
     # ---- 7. times (CUDA events, median of 25 after warm-up) ----------------
     times = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -453,20 +640,36 @@ def main() -> int:
             "GB_per_s": nbytes / (ms_k * 1e-3) / 1e9,
             "plain_GB_per_s": nbytes / (ms_p * 1e-3) / 1e9,
         }
-    src, tar, _, _ = problems["50pct"][0]
-    pts = torch.cat([src.T, tar.T]).contiguous()
-    for b in (b2, 2048):
-        idx = sample_minimal_sets(gen, src.shape[0], b)
-        s, t = K.to_soa(src[idx]), K.to_soa(tar[idx])
+    # K2's bound at a shape: 17 values a hypothesis and 5 a point moved, the
+    # plain version's arithmetic (inlier counting) at the float32 rate.
+    per_hyp, per_pair = roofline.score_ops(K.aca_solve_score_soa_plain,
+                                           "inliers")
+
+    def k2_bound(b, pairs, n=2000):
+        return roofline.bound_ms(
+            4 * pairs * (17 * b + 5 * n),
+            {k: pairs * b * (per_hyp.get(k, 0) + n * per_pair[k])
+             for k in per_pair})
+
+    for b, pairs in ((b2, 1), (2048, 1), (2048, 8)):
+        s, t, pts, w = score_problem(2000, pairs, b)
+        if pairs == 1:
+            s, t, pts, w = s[0], t[0], pts[0], w[0]
+        ones = torch.ones_like(w)
         ms_k, ms_p = paired_ms(
-            lambda: K.aca_solve_score_soa(s, t, pts, 9.0),
-            lambda: K.aca_solve_score_soa_plain(s, t, pts, 9.0,
-                                                torch.ones(pts.shape[1], device=dev),
+            lambda: K.aca_solve_score_soa(s, t, pts, 9.0, ones),
+            lambda: K.aca_solve_score_soa_plain(s, t, pts, 9.0, ones,
                                                 "inliers"),
         )
-        times[f"k2_B{b}_N2000"] = {
-            "B": b, "N": 2000, "ms": ms_k, "plain_ms": ms_p,
-            "pairs_per_s": b * 2000 / (ms_k * 1e-3),
+        hyp_blocks, chunks, chunk_points = K.score_grid(pairs, b, 2000)
+        key = f"k2_B{b}_N2000" + (f"_P{pairs}" if pairs > 1 else "")
+        times[key] = {
+            "B": b, "N": 2000, "pairs": pairs, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": k2_bound(b, pairs)[0],
+            "pairs_per_s": pairs * b * 2000 / (ms_k * 1e-3),
+            "grid": [hyp_blocks, chunks, pairs], "chunk_points": chunk_points,
+            "blocks": hyp_blocks * chunks * pairs,
+            "warps_per_sm": hyp_blocks * chunks * pairs * 8 / 132,
         }
     src, tar, _, _ = problems["50pct"][0]
     fh = lambda: sks_tpu_torch.find_homography(src, tar, max_iters=2048)  # noqa: E731
@@ -535,10 +738,32 @@ def main() -> int:
             key = registry[r["solver"]].key
             if r["batch"] == b1 and key not in timed:
                 timed[key] = (r["kernel_ms"], r["plain_soa_ms"])
+    # The bound of each kernel at the shape its time was taken at
+    # (bench/roofline.py): bytes at 3.35 TB/s against arithmetic, counted
+    # from the plain version by element type, each type at its own rate: 67
+    # TFLOP/s in float32 and 34 in float64 (K5-ho and K5-ndlt do both).
+    bounds = {"aca_solve_score": k2_bound(b2, 1)}
+    work = {"aca_solve_score": {"bytes_per_hyp": 68, "ops_per_hyp": per_hyp,
+                                "ops_per_pair": per_pair}}
+    for registry, dt in ((SOLVE_KERNELS, torch.float32),
+                         (FP64_SOLVE_KERNELS, torch.float64)):
+        for solve in registry.values():
+            ops = roofline.solve_ops(solve.plain, dt)
+            nbytes = 25 * torch.finfo(dt).bits // 8
+            bounds[solve.key] = roofline.bound_ms(
+                b1 * nbytes, {k: b1 * v for k, v in ops.items()})
+            work[solve.key] = {"bytes_per_hyp": nbytes, "ops_per_hyp": ops}
+    emit("bounds", card=smi, memory_bytes_per_s=roofline.H100_BYTES_PER_S,
+         flops=roofline.H100_FLOPS,
+         work=work)
+    # library_ms: no single PyTorch call computes any of these functions
+    # whole (the yardsticks above time a dominant step, not the function).
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errors[name],
-         "ms": timed[name][0], "plain_ms": timed[name][1]}
+         "ms": timed[name][0], "plain_ms": timed[name][1],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None}
         for name, (source, replaces) in kernel_sources.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

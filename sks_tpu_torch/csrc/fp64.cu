@@ -13,8 +13,8 @@
 //   sks   SksCore<double>                    ops/sks.py::sks_core
 //   ge    GeCore<double>                     ops/ge.py::ge_core
 //   gpt   GptCore<double>                    ops/gpt.py::gpt_core
-//   ho    HoCore<double, Invit64<4>>         ho_core(eig_method='invit64')
-//   ndlt  NdltCore<double, Invit64<3>>       ndlt_core(eig='invit64')
+//   ho    HoCore<double, Invit64<4, ..>>     ho_core(eig_method='invit64')
+//   ndlt  NdltCore<double, Invit64<3, ..>>   ndlt_core(eig='invit64')
 // and every kind divides its 9 entries by h22 in float64, as the JAX kernel
 // does (df64_pallas.py:103).  Inputs are float32 (widened exactly, as the
 // JAX kernel lifts f32 to DF) or float64; the output is always float64.
@@ -27,15 +27,21 @@
 //   doubles out, 200 B per hypothesis from float64 storage (136 B from
 //   float32) for a few hundred float64 ops.  256 threads per block,
 //   coalesced (8, B) access.
-// - GPT, HO and NDLT by float64 arithmetic and registers.  The card's
-//   non-tensor float64 rate is half its float32 rate, IEEE float64
-//   division and sqrt are multi-instruction sequences, and a double takes
-//   two registers: GPT's 72-entry tableau and NDLT's float64 LDL^T (the
-//   normal matrix, 36 L and 36 W entries, 9 pivots) beside its float32
-//   Jacobi seed (81 + 81 values) probably spill past 255 registers.  Block
-//   sizes as in K4 (GPT and HO 128, NDLT 64, which leaves each thread the
-//   full 255 registers); the build log reports registers and spills, and
-//   removing the spills is later work.
+// - GPT and HO by float64 arithmetic and registers.  The card's non-tensor
+//   float64 rate is half its float32 rate, IEEE float64 division and sqrt
+//   are multi-instruction sequences, and a double takes two registers.  Block
+//   sizes as in K4 (128 threads); no instance spills.
+// - NDLT by instruction rate and registers in its float32 Jacobi seed
+//   (sweeps are ~95% of the time, as in K4-NDLT: see baselines.cu).  The
+//   float64 LDL^T part needs ~190 registers whatever the seed does, so the
+//   kernel cannot hold the warps that K4-NDLT's shared-memory seed feeds on,
+//   and that form, with half again as many instructions, measured slower
+//   here.  What measured best: v in registers, the 3 sweeps a loop (the
+//   unrolled seed is ~19,000 instructions of straight-line code; the loop is
+//   a third of it and measured a quarter faster in float32), the normal
+//   matrix rebuilt after the seed from reloaded inputs, and
+//   __launch_bounds__(64, 6): 168 registers, 12 warps an SM, ~430 B of
+//   spills in the float64 part.  Times of the forms: PERF.md.
 //
 // Built, like every source here, with -fmad=false and IEEE division and
 // sqrt (no fast math): every float64 and float32 op rounds as the eager
@@ -51,9 +57,10 @@ constexpr int kBytesThreads = 256;  // ACA, SKS, GE
 constexpr int kGptThreads = 128;
 constexpr int kHoThreads = 128;
 constexpr int kNdltThreads = 64;
+constexpr int kNdltMinBlocks = 6;  // 168 registers a thread
 
-using HoF64 = HoCore<double, Invit64<4>>;
-using NdltF64 = NdltCore<double, Invit64<3>>;
+using HoF64 = HoCore<double, Invit64<4, VRegs>>;
+using NdltF64 = NdltCore<double, Invit64<3, VRegs, true>>;
 
 }  // namespace
 
@@ -62,4 +69,4 @@ SKS_EXPORT_FP64(sks, SksCore<double>, kBytesThreads)
 SKS_EXPORT_FP64(ge, GeCore<double>, kBytesThreads)
 SKS_EXPORT_FP64(gpt, GptCore<double>, kGptThreads)
 SKS_EXPORT_FP64(ho, HoF64, kHoThreads)
-SKS_EXPORT_FP64(ndlt, NdltF64, kNdltThreads)
+SKS_EXPORT_FP64_BOUNDED(ndlt, NdltF64, kNdltThreads, kNdltMinBlocks)

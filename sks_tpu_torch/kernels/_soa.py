@@ -46,6 +46,12 @@ def check_soa(src: Tensor, tar: Tensor, storage=_STORAGE) -> None:
             f"src and tar must both be (8, B); got {tuple(src.shape)} and "
             f"{tuple(tar.shape)}"
         )
+    check_storage(src, tar, storage)
+
+
+def check_storage(src: Tensor, tar: Tensor, storage=_STORAGE) -> None:
+    """Raise unless src and tar are contiguous, of one dtype of ``storage``,
+    on one device."""
     if src.dtype not in storage or tar.dtype != src.dtype:
         raise TypeError(
             f"src and tar must share one dtype of {storage}; got "

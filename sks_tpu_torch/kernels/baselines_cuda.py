@@ -6,21 +6,34 @@ K4 replaces ``sks_tpu/kernels/baselines_pallas.py::_soa_solve`` (body
 template (``csrc/soa.cuh::solve_soa_kernel``) runs four device cores
 (``csrc/baselines.cu``), each following its PyTorch core op for op:
 
-=================  ==========================================  ==============
-wrapper            core (the plain version's and the body's)   expected bound
-=================  ==========================================  ==============
-``ge_solve_soa``   ``ops.ge.ge_core`` (~250 flops)             bytes
-``gpt_solve_soa``  ``ops.gpt.gpt_core`` (~1,500)               f32 / regs
-``ho_solve_soa``   ``ops.ho.ho_core(eig_method='jacobi')``     f32 / regs
-``ndlt_solve_soa`` ``ops.ndlt.ndlt_core(eig='invit')`` (~15K)  f32 / regs
-=================  ==========================================  ==============
+=================  ===========================================  ============
+wrapper            core (the plain version's and the body's)    bound
+=================  ===========================================  ============
+``ge_solve_soa``   ``ops.ge.ge_core`` (304 ops)                 bytes
+``gpt_solve_soa``  ``ops.gpt.gpt_core`` (572 ops)               bytes
+``ho_solve_soa``   ``ops.ho.ho_core(eig_method='jacobi')``      operations
+                   (2,859 ops)
+``ndlt_solve_soa`` ``ops.ndlt.ndlt_core(eig='invit')``          operations
+                   (20,466 ops)
+=================  ===========================================  ============
 
 Each is one thread per hypothesis on the ``(8, B)`` layout, 16 values in and
-9 out (100 B in float32, 50 B in bfloat16 storage), arithmetic in float32.
-GE is expected to be bound by bytes like K1; GPT, HO and NDLT by float32
-arithmetic and registers.  Every static loop is unrolled so the tableau and
-the Jacobi state stay in registers (``csrc/baselines.cu`` has the design
-note; the build log reports registers and spills).
+9 out (100 B in float32, 50 B in bfloat16 storage), arithmetic in float32;
+the op counts are the arithmetic operations of the plain version
+(``bench/roofline.py``; compares and selects apart), and "bound" is which of bytes at the card's memory
+rate or operations at its float32 rate takes longer.  GE runs at the byte
+bound like K1.  GPT and HO keep their tableau and Jacobi state in registers
+(every static loop unrolled).  NDLT's time is its 9x9 Jacobi seed, 108
+rotations that each start with a dependent sqrt, division, sqrt, division:
+what it needs is more resident warps to hide that chain, so the seed's
+81-entry eigenvector matrix lives in shared memory (``[entry][thread]``,
+20.7 KB a block of 64 threads) and the normal matrix is rebuilt after the
+seed from inputs read a second time, which brings the kernel from 225 to
+108 registers and from 8 to 18 warps an SM without touching the arithmetic
+(``csrc/baselines.cu`` has the design note and ``bench/ndlt_ablation.py`` the
+ablation that led there; the build log reports registers and spills).  One
+thread's seed is about a tenth longer through shared memory, so batches too
+small to fill the card (B <= 10,000) run that much slower than before.
 
 Each wrapper runs the plain version only for tensors on the CPU; for a CUDA
 tensor it launches the kernel or raises, and counts the launch in

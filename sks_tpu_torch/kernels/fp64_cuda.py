@@ -9,9 +9,14 @@ K5 ``fp64_solve_soa`` (``csrc/fp64.cu``, in ``soa.cuh::solve_soa_kernel``)
   and writes ``(9, B)`` float64, each H divided by its h22 as there.  One
   thread per hypothesis on the ``(8, B)`` layout; float32 or float64
   storage in (136 or 200 B per hypothesis with the float64 output).
-  Expected bound: bytes for ACA, SKS and GE; float64 arithmetic and
-  registers for GPT, HO and NDLT (``csrc/fp64.cu`` has the design note; the
-  build log reports registers and spills).
+  Bound by bytes for every kind but NDLT, which operations bound: those of
+  its float32 seed at the float32 rate and those of its float64 LDLᵀ part at
+  the float64 rate (``bench/roofline.py``).  The ``ndlt`` kind spends its time in the
+  same float32 Jacobi seed as K4-NDLT and takes that kernel's rebuilt normal
+  matrix, but keeps the seed's eigenvector matrix in registers with the
+  sweeps as a loop, under a 168-register cap: its float64 LDLᵀ part holds
+  too many registers for the shared-memory form to pay (``csrc/fp64.cu`` has
+  the design note; the build log reports registers and spills).
 
 Kinds are the JAX package's (``aca``, ``sks``, ``ge``, ``gpt``, ``ho``,
 ``ndlt``); each kind's plain version is its float64 core in

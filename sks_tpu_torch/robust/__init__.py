@@ -11,6 +11,7 @@ from sks_tpu_torch.robust.ransac import (  # noqa: F401
     ransac_homography,
     ransac_homography_adaptive,
     ransac_homography_fused,
+    ransac_homography_fused_batch,
     sample_minimal_sets,
     score_hypotheses,
 )

@@ -1,7 +1,10 @@
 """cv2-style convenience API over the vectorized RANSAC stack.
 
 Port of ``sks_tpu/robust/api.py``: the ``cv2.findHomography`` call shape and
-``(H, mask)`` return, torch tensors in and out, on the device of the input.
+``(H, mask)`` return, torch tensors in and out.  Tensors are computed where
+they lie; inputs that are not tensors (numpy arrays, lists) go to the CUDA
+device, and raise where there is none: a caller asks for the CPU by passing
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from sks_tpu_torch.robust.ransac import (
     RansacConfig,
     ransac_homography,
     ransac_homography_adaptive,
+    ransac_homography_fused_batch,
 )
 
 __all__ = [
@@ -23,6 +27,21 @@ __all__ = [
 ]
 
 _METHODS = ("ransac", "msac", "magsac", "lmeds", "fused")
+
+
+def _on_device(src, tar):
+    """``src`` and ``tar`` as tensors on one device: ``src``'s if it is a
+    tensor, else ``tar``'s if that is one, else the CUDA device (or raise)."""
+    for x in (src, tar):
+        if isinstance(x, Tensor):
+            return (torch.as_tensor(src, device=x.device),
+                    torch.as_tensor(tar, device=x.device))
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "array inputs are computed on the CUDA device and there is none; "
+            "pass CPU tensors (torch.as_tensor(x)) to compute on the CPU")
+    return (torch.as_tensor(src, device="cuda"),
+            torch.as_tensor(tar, device="cuda"))
 
 
 def fused_by_default(device_type: str, dtype: torch.dtype) -> bool:
@@ -54,9 +73,11 @@ def find_homography(
     """Robustly fit H mapping src -> tar (the ``cv2.findHomography`` shape).
 
     Args:
-      src, tar: (..., N, 2) matched points, N >= 4 (tensors or arrays).
+      src, tar: (..., N, 2) matched points, N >= 4.  Tensors stay on their
+        device; arrays go to the CUDA device (and raise without one).
         Leading batch dims fit one pair after another, each drawing its
-        minimal sets from ``generator`` in turn.
+        minimal sets from ``generator`` in turn; on the fused path all
+        pairs are solved and scored in one kernel launch.
       method: 'ransac' (inlier counting), 'msac', 'magsac', 'lmeds', or
         'fused' (force the fused solve+score path).
       ransac_reproj_threshold: inlier threshold in pixels (symmetric transfer).
@@ -82,8 +103,7 @@ def find_homography(
     """
     if method not in _METHODS:
         raise ValueError(f"method must be one of {_METHODS}, got {method!r}")
-    src = torch.as_tensor(src)
-    tar = torch.as_tensor(tar, device=src.device)
+    src, tar = _on_device(src, tar)
     if confidence is not None:
         # The early-exit loop; raises NotImplementedError until it is ported.
         ransac_homography_adaptive(src, tar, confidence=confidence)
@@ -119,11 +139,15 @@ def find_homography(
     srcf = src.reshape(-1, n, 2)
     tarf = tar.reshape(-1, n, 2)
     pmf = None if point_mask is None else point_mask.reshape(-1, n)
-    results = [
-        ransac_homography(generator, srcf[i], tarf[i], config,
-                          None if pmf is None else pmf[i])
-        for i in range(srcf.shape[0])
-    ]
+    if fused:
+        results = ransac_homography_fused_batch(generator, srcf, tarf, config,
+                                                pmf)
+    else:
+        results = [
+            ransac_homography(generator, srcf[i], tarf[i], config,
+                              None if pmf is None else pmf[i])
+            for i in range(srcf.shape[0])
+        ]
     h = torch.stack([r.h for r in results]).reshape(*bshape, 3, 3)
     mask = torch.stack([r.inlier_mask for r in results]).reshape(*bshape, n)
     return h, mask
@@ -142,8 +166,8 @@ def get_perspective_transform(src: Tensor, tar: Tensor,
     """
     from sks_tpu_torch.ops import SOLVERS
 
-    src = torch.as_tensor(src)
-    return SOLVERS[solver](src, torch.as_tensor(tar, device=src.device))
+    src, tar = _on_device(src, tar)
+    return SOLVERS[solver](src, tar)
 
 
 def get_affine_transform(src: Tensor, tar: Tensor) -> Tensor:
@@ -154,5 +178,5 @@ def get_affine_transform(src: Tensor, tar: Tensor) -> Tensor:
     """
     from sks_tpu_torch.ops.affine import affine_3pt
 
-    src = torch.as_tensor(src)
-    return affine_3pt(src, torch.as_tensor(tar, device=src.device))[..., :2, :]
+    src, tar = _on_device(src, tar)
+    return affine_3pt(src, tar)[..., :2, :]

@@ -52,6 +52,7 @@ __all__ = [
     "ransac_homography",
     "ransac_homography_adaptive",
     "ransac_homography_fused",
+    "ransac_homography_fused_batch",
     "sample_minimal_sets",
     "score_hypotheses",
 ]
@@ -368,13 +369,9 @@ def _top_k(scores: Tensor, k: int) -> Tensor:
     return torch.sort(scores, descending=True, stable=True).indices[:k]
 
 
-def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None):
-    """Fused-kernel twin of :func:`_eval_chunk` (same contract).
-
-    All B hypotheses are solved and scored in one kernel launch; only the
-    top-K winning minimal sets are re-solved and re-scored on the eager path,
-    so downstream selection and polish see exactly the general path's numbers.
-    """
+def _fused_draw(generator, src, tar, config, point_mask, indices=None):
+    """Check a fused-path config and draw one pair's batch: the minimal sets
+    ``(s4, t4)`` and the fused kernel's ``(src, tar, pts, weights)``."""
     if config.solver != "aca":
         raise ValueError("the fused path is ACA-only")
     if config.scoring not in ("inliers", "msac", "magsac"):
@@ -386,15 +383,18 @@ def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None):
     idx = _minimal_sets(generator, src, config, point_mask, indices)
     s4 = src[idx]  # (B, 4, 2)
     t4 = tar[idx]
-
     store = torch.bfloat16 if config.bf16_hypotheses else torch.float32
     pts = torch.cat([src.T, tar.T], dim=0).float().contiguous()  # (4, N)
-    pw = None if point_mask is None else point_mask.float().contiguous()
-    counts = aca_solve_score_soa(
-        to_soa(s4).to(store), to_soa(t4).to(store), pts,
-        fused_kernel_threshold(config), point_weights=pw,
-        scoring=config.scoring,
-    )
+    pw = (torch.ones(src.shape[0], dtype=torch.float32, device=src.device)
+          if point_mask is None else point_mask.float().contiguous())
+    return (s4, t4), (to_soa(s4).to(store), to_soa(t4).to(store), pts, pw)
+
+
+def _fused_top(counts, s4, t4, src, tar, config, point_mask):
+    """The top-K of one pair's fused scores ``counts`` (B,), re-solved and
+    re-scored on the eager path, so downstream selection and polish see
+    exactly the general path's numbers.  Returns as :func:`_eval_chunk`."""
+    b = config.num_hypotheses
     top_idx = _top_k(counts, max(1, min(config.lo_candidates, b)))
 
     # Only the K winning minimal sets are re-solved on the eager path.
@@ -411,6 +411,21 @@ def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None):
     # ascending sort of the negation, as jnp.argsort(-sc_top).
     order = torch.sort(-sc_top, stable=True).indices
     return h_top[order], sc_top[order], _take(inl, order[0])
+
+
+def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None):
+    """Fused-kernel twin of :func:`_eval_chunk` (same contract).
+
+    All B hypotheses are solved and scored in one kernel launch; only the
+    top-K winning minimal sets are re-solved and re-scored on the eager path.
+    """
+    (s4, t4), (s_soa, t_soa, pts, pw) = _fused_draw(
+        generator, src, tar, config, point_mask, indices)
+    counts = aca_solve_score_soa(
+        s_soa, t_soa, pts, fused_kernel_threshold(config), point_weights=pw,
+        scoring=config.scoring,
+    )
+    return _fused_top(counts, s4, t4, src, tar, config, point_mask)
 
 
 def _eval_chunk(generator, src, tar, config, point_mask, indices=None):
@@ -581,6 +596,58 @@ def ransac_homography_fused(
                                                 point_mask, indices)
     return _refine_and_pack(h_top, sc_top, inl_best, src, tar, config,
                             point_mask)
+
+
+def ransac_homography_fused_batch(
+    generator: torch.Generator | None,
+    src: Tensor,
+    tar: Tensor,
+    config: RansacConfig = RansacConfig(),
+    point_mask: Tensor | None = None,
+    *,
+    indices: Tensor | None = None,
+) -> list[RansacResult]:
+    """:func:`ransac_homography_fused` on P pairs with one kernel launch.
+
+    The counterpart of ``jax.vmap`` over pairs around the fused fit.  Every
+    pair's minimal sets are drawn first, pair after pair from the one
+    ``generator`` (nothing else on the path draws from it, so the draws are
+    those of P single fits in turn); one launch of
+    ``aca_solve_score_soa`` scores all P x B hypotheses; the top-K re-score
+    and the polish then run pair by pair.
+
+    Args:
+      src, tar: (P, N, 2) matched points.
+      point_mask: optional (P, N) bool.
+      indices: optional (P, B, 4) integer minimal sets in place of the draws.
+
+    Returns:
+      One :class:`RansacResult` per pair.
+    """
+    _check_ported(config)
+    if generator is None and indices is None:
+        generator = torch.Generator(device=src.device).manual_seed(0)
+    pairs = range(src.shape[0])
+    masks = [None if point_mask is None else point_mask[i] for i in pairs]
+    draws = [
+        _fused_draw(generator, src[i], tar[i], config, masks[i],
+                    None if indices is None else indices[i])
+        for i in pairs
+    ]
+    if not draws:
+        return []
+    s_soa, t_soa, pts, pw = (torch.stack(x) for x in
+                             zip(*(kernel_in for _, kernel_in in draws)))
+    counts = aca_solve_score_soa(
+        s_soa, t_soa, pts, fused_kernel_threshold(config), point_weights=pw,
+        scoring=config.scoring,
+    )
+    results = []
+    for i, ((s4, t4), _) in enumerate(draws):
+        top = _fused_top(counts[i], s4, t4, src[i], tar[i], config, masks[i])
+        results.append(_refine_and_pack(*top, src[i], tar[i], config,
+                                        masks[i]))
+    return results
 
 
 def ransac_homography_adaptive(*args, **kwargs) -> RansacResult:

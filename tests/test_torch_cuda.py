@@ -7,8 +7,10 @@ GPU machine without it, from the repository root:
     python -m pytest tests/test_torch_cuda.py -q -o addopts="" --noconftest
 
 Sizes are the main path's: K1, K3 and the K4 instances at B = 2^18, a
-ragged B and B = 1; K2 at B = 8192 minimal sets against N = 2,047 points;
-the six K5 kinds at B = 2^20 and 1,000, from float32 and float64 storage.
+ragged B and B = 1 (K4-NDLT also at 2^20); K2 at B = 8192 minimal sets
+against N = 2,047 points, and at 2,048 and 65,536 against 2,000, 1,999 and 20
+points with one pair and a pair axis of 8; the six K5 kinds at B = 2^20 and
+1,000, from float32 and float64 storage.
 """
 
 import pytest
@@ -87,6 +89,120 @@ def test_k2_kernel_matches_plain(score_inputs, scoring, dtype):
     else:
         # The kernel sums points in order, the plain version pairwise.
         torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-4)
+
+
+def _k2_problem(dev, b, n, pairs, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(pairs):
+        src, tar, _ = random_correspondences(g, (), n, 0.5)
+        tar = tar.clone()
+        tar[:n // 2] = torch.rand((n // 2, 2), generator=g, device=dev) * 640.0
+        idx = sample_minimal_sets(g, n, b)
+        out.append((K.to_soa(src[idx]), K.to_soa(tar[idx]),
+                    torch.cat([src.T, tar.T]).contiguous(),
+                    (torch.rand(n, generator=g, device=dev) >= 0.1).float()))
+    return tuple(torch.stack(x) for x in zip(*out))
+
+
+@pytest.mark.parametrize("b,n,pairs", [
+    (2048, 2000, 1), (65536, 2000, 1), (2048, 1999, 1), (2048, 20, 1),
+    (2048, 2000, 8), (2048, 1999, 8), (1000, 513, 3),
+])
+@pytest.mark.parametrize("scoring", ["inliers", "msac", "magsac"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_grid_kernel_matches_plain(dev, b, n, pairs, scoring, dtype):
+    """Split points, pair axis, ragged N, dropped points: 'inliers' equal
+    (integer sums), soft scores within summation order of the plain
+    version's, and the same launch twice the same bits (no atomics)."""
+    s, t, pts, w = _k2_problem(dev, b, n, pairs, seed=b + n + pairs)
+    s, t = s.to(dtype), t.to(dtype)
+    thr = fused_kernel_threshold(RansacConfig(threshold=3.0, scoring=scoring))
+    before = K.LAUNCHES["aca_solve_score"]
+    sk = K.aca_solve_score_soa(s, t, pts, thr, w, scoring)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["aca_solve_score"] == before + 1  # one for all pairs
+    assert torch.equal(sk, K.aca_solve_score_soa(s, t, pts, thr, w, scoring))
+    sp = K.aca_solve_score_soa_plain(s, t, pts, thr, w, scoring)
+    assert sk.shape == (pairs, b)
+    if scoring == "inliers":
+        assert torch.equal(sk, sp)
+    else:
+        torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-4)
+    # The two-dimensional call, pair by pair: the same bits in every scoring
+    # (the order of a score's sum does not depend on the pair count).
+    for p in range(pairs):
+        assert torch.equal(sk[p], K.aca_solve_score_soa(
+            s[p], t[p], pts[p], thr, w[p], scoring))
+
+
+def test_k2_refused_launch_raises_and_does_not_fall_back(dev):
+    """65,536 pairs put grid z over the 65,535 a launch takes: the launch is
+    refused, the wrapper raises from check_launch, and nothing is counted."""
+    pairs = 65536
+    s = torch.zeros((pairs, 8, 32), device=dev)
+    pts = torch.zeros((pairs, 4, 4), device=dev)
+    before = K.LAUNCHES["aca_solve_score"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        K.aca_solve_score_soa(s, s, pts, 1.0)
+    assert K.LAUNCHES["aca_solve_score"] == before
+    # The card is still usable: the error was the launch's, not sticky.
+    ok = K.aca_solve_score_soa(s[:2], s[:2], pts[:2], 1.0)
+    torch.cuda.synchronize()
+    assert ok.shape == (2, 32)
+
+
+@pytest.mark.parametrize("method", ["ransac", "msac", "magsac"])
+def test_batched_find_homography_launches_k2_once(dev, method):
+    import sks_tpu_torch
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    src, tar, h_true = random_correspondences(g, (4,), 400, 0.5)
+    before = K.LAUNCHES["aca_solve_score"]
+    h, mask = sks_tpu_torch.find_homography(
+        src, tar, method=method,
+        generator=torch.Generator(device=dev).manual_seed(7))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["aca_solve_score"] == before + 1
+    assert h.shape == (4, 3, 3) and mask.shape == (4, 400)
+    g7 = torch.Generator(device=dev).manual_seed(7)
+    for i in range(4):  # the per-pair loop on the same generator
+        hi, mi = sks_tpu_torch.find_homography(src[i], tar[i], method=method,
+                                               generator=g7)
+        assert torch.equal(hi, h[i]) and torch.equal(mi, mask[i])
+
+
+def test_array_inputs_are_computed_on_the_card(dev):
+    import sks_tpu_torch
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    src, tar, _ = random_correspondences(g, (), 300, 0.5)
+    h, mask = sks_tpu_torch.find_homography(src.cpu().numpy(),
+                                            tar.cpu().numpy())
+    assert h.device.type == "cuda" and mask.device.type == "cuda"
+    quad = sks_tpu_torch.get_perspective_transform(src[:4].cpu().numpy(),
+                                                   tar[:4].cpu().numpy())
+    tri = sks_tpu_torch.get_affine_transform(src[:3].cpu().numpy(),
+                                             tar[:3].cpu().numpy())
+    assert quad.device.type == "cuda" and tri.device.type == "cuda"
+    # CPU tensors stay on the CPU.
+    assert sks_tpu_torch.get_perspective_transform(
+        src[:4].cpu(), tar[:4].cpu()).device.type == "cpu"
+
+
+def test_ndlt_kernels_equal_plain_at_full_batch(dev):
+    """K4-NDLT (Jacobi seed's v in shared memory) and K5-ndlt (rolled seed,
+    capped registers) at B = 2^20 and 1,000: bit-equal to their plain
+    versions, as before their redesign."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    src, tar = random_quad_pairs(g, 1 << 20, torch.float64)
+    s64, t64 = K.to_soa(src), K.to_soa(tar)
+    for b in (1 << 20, 1000):
+        s, t = s64[:, :b].contiguous(), t64[:, :b].contiguous()
+        k4, k5 = SOLVE_KERNELS["ndlt"], FP64_SOLVE_KERNELS["ndlt"]
+        assert _equal_nan(k4.kernel(s.float(), t.float()),
+                          k4.plain(s.float(), t.float()))
+        assert _equal_nan(k5.kernel(s, t), k5.plain(s, t))
 
 
 def test_cuda_wrappers_raise_on_mixed_devices(dev):

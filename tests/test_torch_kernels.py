@@ -194,6 +194,107 @@ def test_k2_default_weights_are_ones():
                        tk.aca_solve_score_soa(*args, point_weights=ones))
 
 
+def _pair_inputs(pairs=3):
+    """``pairs`` independent K2 problems of one shape, stacked on a pair axis."""
+    per = [_score_inputs(n=150, seed=20 + i) for i in range(pairs)]
+    s = torch.stack([tk.to_soa(T(p[0])) for p in per])
+    t = torch.stack([tk.to_soa(T(p[1])) for p in per])
+    pts = torch.stack([T(p[2]) for p in per])
+    w = torch.stack([T(p[3]) for p in per])
+    return per, s, t, pts, w
+
+
+@pytest.mark.parametrize("scoring", ["inliers", "msac", "magsac"])
+def test_k2_pair_axis_equals_the_two_dimensional_call(scoring):
+    """(P, 8, B) x (P, 4, N) x (P, N) -> (P, B): pair p of one call is the
+    two-dimensional call on pair p, value for value (the same elementwise
+    ops, each row summed over its own N points)."""
+    _, s, t, pts, w = _pair_inputs()
+    t2 = fused_kernel_threshold(RansacConfig(threshold=4.0, scoring=scoring))
+    batched = tk.aca_solve_score_soa(s, t, pts, t2, w, scoring)
+    assert batched.shape == (3, B) and batched.dtype == torch.float32
+    assert torch.equal(
+        batched, tk.aca_solve_score_soa_plain(s, t, pts, t2, w, scoring))
+    for p in range(3):
+        single = tk.aca_solve_score_soa(s[p], t[p], pts[p], t2, w[p], scoring)
+        assert torch.equal(batched[p], single)
+    # Default weights on the pair axis are ones, as without it.
+    assert torch.equal(tk.aca_solve_score_soa(s, t, pts, t2, None, scoring),
+                       tk.aca_solve_score_soa(s, t, pts, t2,
+                                              torch.ones_like(w), scoring))
+
+
+@pytest.mark.parametrize("scoring", ["inliers", "msac", "magsac"])
+def test_k2_pair_axis_matches_pallas_pair_by_pair(scoring):
+    """The pair axis is what ``jax.vmap`` of the TPU kernel gives: held
+    against the Pallas kernel in interpret mode, called pair by pair (one
+    shape, so one trace), at the tolerances of the two-dimensional test."""
+    per, s, t, pts, w = _pair_inputs(pairs=2)
+    t2 = fused_kernel_threshold(RansacConfig(threshold=4.0, scoring=scoring))
+    st = to_np(tk.aca_solve_score_soa(s, t, pts, t2, w, scoring))
+    with pltpu.force_tpu_interpret_mode():
+        for p, (s4, t4, pts_p, w_p) in enumerate(per):
+            sj = jk.aca_solve_score_soa(
+                jk.to_soa(s4), jk.to_soa(t4), pts_p, t2, point_weights=w_p,
+                scoring=scoring, tile=1, point_block=128,
+            )
+            _assert_scores_agree(st[p], np.asarray(sj).reshape(B), scoring)
+
+
+def _kernel_point_cover(n, chunks, chunk_points, tile=512, slices=8, unroll=4):
+    """How often K2's blocks visit each of n points, following the kernel's
+    own arithmetic (csrc/aca.cu): chunks on grid y, tiles of ``tile`` points
+    per chunk, the tile's points dealt over ``slices`` warps in runs that are
+    multiples of ``unroll`` (positions at or beyond the tile's count are
+    zero-weight padding)."""
+    seen = np.zeros(n, np.int64)
+    for c in range(chunks):
+        begin, end = c * chunk_points, min(n, (c + 1) * chunk_points)
+        for base in range(begin, end, tile):
+            cnt = min(tile, end - base)
+            run = -(-(-(-cnt // slices)) // unroll) * unroll
+            padded = -(-cnt // unroll) * unroll
+            assert padded <= tile
+            for w in range(slices):
+                for j in range(w * run, min(w * run + run, padded)):
+                    if j < cnt:
+                        seen[base + j] += 1
+    return seen
+
+
+@pytest.mark.parametrize("pairs,b,n", [
+    (1, 2048, 2000), (1, 65536, 2000), (8, 2048, 2000), (1, 2048, 1999),
+    (1, 2048, 20), (1, 128, 1), (1, 128, 0), (3, 1000, 513), (1, 32, 100_003),
+    (1, 128, 30_000_000), (65535, 32, 7), (1, 1 << 24, 2001),
+])
+def test_k2_grid_covers_every_point_once(pairs, b, n):
+    hyp_blocks, chunks, chunk_points = tk.score_grid(pairs, b, n)
+    # Every grid axis in range: x < 2^31, y and z <= 65,535.
+    assert hyp_blocks == -(-b // 32) and 1 <= hyp_blocks < 2 ** 31
+    assert 1 <= chunks <= 65535 and pairs <= 65535
+    assert chunk_points >= 1 and chunks * chunk_points >= n
+    # No empty chunk, so no block is launched for nothing.
+    assert n == 0 or (chunks - 1) * chunk_points < n
+    if n <= 200_000:
+        assert (_kernel_point_cover(n, chunks, chunk_points) == 1).all()
+    # A pure function of the shapes.
+    assert tk.score_grid(pairs, b, n) == (hyp_blocks, chunks, chunk_points)
+
+
+def test_k2_grid_fills_the_card_and_stops():
+    """2,048 hypotheses alone are 64 blocks on 132 SMs: chunks are added, but
+    never past 32 points a warp; 65,536 hypotheses are 2,048 blocks and take
+    a single chunk.  The pair count changes nothing: the chunks fix the order
+    of each score's sum, which a shared launch must not change."""
+    _, chunks_small, cp_small = tk.score_grid(1, 2048, 2000)
+    assert chunks_small > 1 and 64 * chunks_small >= 2 * 132
+    assert cp_small >= 8 * 32
+    assert tk.score_grid(1, 65536, 2000)[1] == 1
+    for b, n in ((2048, 2000), (65536, 2000), (1000, 513), (128, 30_000)):
+        assert len({tk.score_grid(p, b, n) for p in (1, 2, 8, 500)}) == 1
+    assert tk.score_grid(1, 2048, 100)[1] == 1  # too few points to split
+
+
 # K3 and the K4 instances that interpret mode runs in seconds; the Pallas
 # NDLT is marked slow in the JAX package's own tests.
 _SOLVE = {
@@ -268,6 +369,25 @@ def _bad_call(case):
         "pts_shape": (tk.aca_solve_score_soa, (s, s, p.T.contiguous(), 1.0)),
         "weights_shape": (tk.aca_solve_score_soa, (s, s, p, 1.0, w[:5])),
         "scoring": (tk.aca_solve_score_soa, (s, s, p, 1.0, w, "lmeds")),
+        "pair_pts_without_axis": (tk.aca_solve_score_soa,
+                                  (torch.stack([s, s]), torch.stack([s, s]),
+                                   p, 1.0)),
+        "pair_weights_without_axis": (tk.aca_solve_score_soa,
+                                      (torch.stack([s, s]),
+                                       torch.stack([s, s]),
+                                       torch.stack([p, p]), 1.0, w)),
+        "pair_counts_differ": (tk.aca_solve_score_soa,
+                               (torch.stack([s, s]), torch.stack([s, s]),
+                                torch.stack([p, p, p]), 1.0)),
+        "pair_tar_without_axis": (tk.aca_solve_score_soa,
+                                  (torch.stack([s, s]), s,
+                                   torch.stack([p, p]), 1.0)),
+        "two_pair_axes": (tk.aca_solve_score_soa,
+                          (s[None, None], s[None, None], p[None, None], 1.0)),
+        "pair_non_contiguous": (tk.aca_solve_score_soa,
+                                (torch.stack([s, s])[:, :, ::2],
+                                 torch.stack([s, s])[:, :, ::2],
+                                 torch.stack([p, p]), 1.0)),
         "sks_f64": (ts.sks_solve_soa, (s.double(), s.double())),
         "ge_shape": (tb.ge_solve_soa, (s, s[:, :8].contiguous())),
         "gpt_non_contiguous": (tb.gpt_solve_soa,
@@ -279,7 +399,9 @@ def _bad_call(case):
 
 @pytest.mark.parametrize("case", [
     "f64", "mixed_dtype", "not_soa", "non_contiguous", "pts_f64", "pts_shape",
-    "weights_shape", "scoring", "sks_f64", "ge_shape", "gpt_non_contiguous",
+    "weights_shape", "scoring", "pair_pts_without_axis",
+    "pair_weights_without_axis", "pair_counts_differ",
+    "pair_tar_without_axis", "two_pair_axes", "pair_non_contiguous", "sks_f64", "ge_shape", "gpt_non_contiguous",
     "ho_mixed_dtype", "ndlt_not_soa",
 ])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
@@ -313,14 +435,22 @@ def test_build_flags_keep_ieee_scoring():
     sources = _build._sources()
     assert [p.name for p in sources] == ["aca.cu", "baselines.cu", "fp64.cu",
                                          "sks.cu"]
+    # The timing instruments are a library of their own, built on demand.
+    assert [p.name for p in _build._sources("ablation")] == [
+        "caps.cu", "f64.cu", "full.cu", "rolled.cu", "sweeps.cu"]
+    exported = "".join(p.read_text() for p in _build._sources("ablation"))
+    for tag in _build.NDLT_ABLATIONS:
+        assert exported.count(f"({tag},") == 1
+    assert _build.library_path("kernels") != _build.library_path("ablation")
     # The library name follows the sources: an edit rebuilds.
     assert len(_build._digest()) == 16
 
 
 def test_build_digest_covers_headers(tmp_path):
     """An edit to a shared header, not only to a .cu, names a new library."""
-    for src in _build._CSRC.iterdir():
-        (tmp_path / src.name).write_bytes(src.read_bytes())
+    import shutil
+
+    shutil.copytree(_build._CSRC, tmp_path, dirs_exist_ok=True)
     before = _build._digest(tmp_path)
     assert before == _build._digest()
     header = tmp_path / "soa.cuh"
@@ -342,3 +472,63 @@ def test_every_solve_kernel_has_its_c_entry_points():
     for solve in SOLVE_KERNELS.values():
         source = (_build._PKG.parent / solve.source).read_text()
         assert f"SKS_EXPORT_SOLVE({solve.key}," in source
+
+
+def test_roofline_counts_operations_from_the_plain_versions():
+    """bench/roofline.py: one operation per element an arithmetic op
+    produces, under the type of the element, so a straight-line core counts
+    its own lines: ACA's 101 float32 operations (the SoA core's) beside 4
+    sign flips that take no part in the bound; K5 adds its 9 divisions by
+    h22; K2 scales with N; K5-ndlt's float32 seed is held to the float32
+    rate and only its LDL^T part to the float64 rate."""
+    from sks_tpu_torch.bench import roofline
+    from sks_tpu_torch.kernels import FP64_SOLVE_KERNELS, SOLVE_KERNELS
+
+    assert roofline.solve_ops(SOLVE_KERNELS["aca"].plain) == {
+        "float32": 101, "other": 4}
+    assert roofline.solve_ops(FP64_SOLVE_KERNELS["aca"].plain,
+                              torch.float64) == {"float64": 110, "other": 4}
+    counts = {name: roofline.solve_ops(solve.plain)["float32"]
+              for name, solve in SOLVE_KERNELS.items()}
+    assert counts["aca"] < counts["sks"] < counts["rho_ge"] \
+        < counts["gpt_lu"] < counts["ho"] < counts["ndlt"]
+    per_hyp, per_pair = roofline.score_ops(tk.aca_solve_score_soa_plain,
+                                           "inliers")
+    # Solve + adjugate a hypothesis; a pair is 23 multiplies (two of them by
+    # the 1.0 of ``1.0 / w``), 19 adds and subtracts, 2 reciprocals and its
+    # term of the sum, beside 5 compares and selects.
+    assert per_hyp == {"float32": 101 + 27, "other": 4}
+    assert per_pair == {"float32": 45, "other": 5}
+    assert roofline.score_ops(tk.aca_solve_score_soa_plain,
+                              "magsac")[1]["float32"] > per_pair["float32"]
+    # 2^20 ACA solves: 100 B each at 3.35 TB/s outlast 101 ops at 67 TFLOP/s.
+    ms, by = roofline.bound_ms(100 * 2 ** 20, {"float32": 101 * 2 ** 20})
+    assert by == "bytes" and abs(ms - 0.0313) < 1e-4
+    assert roofline.bound_ms(100.0, {"float32": 1e9})[1] == "operations"
+    # Compares and selects are no arithmetic; each type has its own rate.
+    assert roofline.bound_ms(0.0, {"other": 1e12}) == (0.0, "bytes")
+    mixed = roofline.bound_ms(0.0, {"float32": 67e9, "float64": 34e9})
+    assert mixed[1] == "operations" and abs(mixed[0] - 2.0) < 1e-9
+    ndlt64 = roofline.solve_ops(FP64_SOLVE_KERNELS["ndlt"].plain,
+                                torch.float64)
+    assert ndlt64["float32"] > 10 * ndlt64["float64"] > 0
+    ho64 = roofline.solve_ops(FP64_SOLVE_KERNELS["ho"].plain, torch.float64)
+    assert ho64["float32"] > 0 and ho64["float64"] > 0
+
+
+def test_sass_listing_is_parsed_into_opcodes_and_loops():
+    from sks_tpu_torch.bench import sass
+
+    listing = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;     /* 0x0 */
+                                                              /* 0x1 */
+        /*0010*/               @P0 BRA 0x50 ;                 /* 0x2 */
+        /*0020*/                   FMUL R2, R4, R30 ;
+        /*0030*/                   FADD.FTZ R0, -R0, -RZ ;
+        /*0040*/              @!P0 BRA 0x20 ;
+        /*0050*/                   EXIT ;
+        /*0060*/                   BRA 0x60;
+    """
+    ops, loops = sass.parse_kernel(listing)
+    assert ops == {"MOV": 1, "BRA": 3, "FMUL": 1, "FADD": 1, "EXIT": 1}
+    assert loops == [("0x20", 3), ("0x60", 1)]

@@ -257,10 +257,11 @@ def test_cv2_shaped_exact_transforms_match_jax():
 
     src, tar = quads(12, 16, np.float64)
     hj = np.asarray(jax.jit(japi.get_perspective_transform)(src, tar))
-    ht = to_np(sks_tpu_torch.get_perspective_transform(src, tar))
+    ts, tt = torch.from_numpy(src), torch.from_numpy(tar)  # CPU tensors
+    ht = to_np(sks_tpu_torch.get_perspective_transform(ts, tt))
     np.testing.assert_allclose(ht, hj, rtol=1e-10)
     aj = np.asarray(jax.jit(japi.get_affine_transform)(src[:, :3], tar[:, :3]))
-    at = to_np(sks_tpu_torch.get_affine_transform(src[:, :3], tar[:, :3]))
+    at = to_np(sks_tpu_torch.get_affine_transform(ts[:, :3], tt[:, :3]))
     assert at.shape == (16, 2, 3)
     np.testing.assert_allclose(at, aj, rtol=1e-10, atol=1e-8)
 

@@ -260,7 +260,7 @@ def test_find_homography_agrees_with_jax():
     """Independent draws on each side; both recover the same consensus."""
     src, tar, h_true, inl = contaminated(7, n=200, outlier_frac=0.5)
     hj, mj = jax.jit(lambda s, t: jfind(s, t, max_iters=256))(src, tar)
-    ht, mt = sks_tpu_torch.find_homography(src, tar, max_iters=256)
+    ht, mt = sks_tpu_torch.find_homography(T(src), T(tar), max_iters=256)
     np.testing.assert_allclose(fro(to_np(ht)), fro(hj), atol=2e-3)
     assert np.mean(to_np(mt) == np.asarray(mj)) >= 0.98
 
@@ -278,6 +278,88 @@ def test_find_homography_batched_and_padded():
     assert not to_np(mask)[1, 80:].any()
     for i, p in enumerate(pairs):
         assert _corner_err(to_np(h[i]).astype(np.float64), p[2]) < 1.5
+
+
+def _three_pairs():
+    pairs = [contaminated(s, n=100, outlier_frac=0.3) for s in (13, 14, 15)]
+    src = T(np.stack([p[0] for p in pairs]))
+    tar = T(np.stack([p[1] for p in pairs]))
+    pm = torch.ones((3, 100), dtype=torch.bool)
+    pm[2, 90:] = False  # one padded pair
+    return pairs, src, tar, pm
+
+
+def test_find_homography_batched_fused_equals_the_per_pair_loop():
+    """On the fused route a batched fit draws every pair's minimal sets
+    first and scores all pairs in one K2 call; each pair's result is that of
+    single fits drawing from the same generator in turn."""
+    pairs, src, tar, pm = _three_pairs()
+    kwargs = dict(method="fused", max_iters=256)
+    h, mask = sks_tpu_torch.find_homography(
+        src, tar, generator=torch.Generator().manual_seed(21), point_mask=pm,
+        **kwargs)
+    assert h.shape == (3, 3, 3) and mask.shape == (3, 100)
+    g = torch.Generator().manual_seed(21)
+    for i in range(3):
+        hi, mi = sks_tpu_torch.find_homography(
+            src[i], tar[i], generator=g, point_mask=pm[i], **kwargs)
+        assert torch.equal(hi, h[i]) and torch.equal(mi, mask[i])
+        assert _corner_err(to_np(hi).astype(np.float64), pairs[i][2]) < 1.5
+    assert not mask[2, 90:].any()
+
+
+@pytest.mark.parametrize("scoring", ["inliers", "msac", "magsac"])
+def test_fused_batch_equals_single_fused_fits(scoring):
+    _, src, tar, pm = _three_pairs()
+    cfg = tr.RansacConfig(num_hypotheses=256, fused=True, scoring=scoring)
+    res = tr.ransac_homography_fused_batch(
+        torch.Generator().manual_seed(22), src, tar, cfg, pm)
+    g = torch.Generator().manual_seed(22)
+    for i, r in enumerate(res):
+        one = tr.ransac_homography_fused(g, src[i], tar[i], cfg, pm[i])
+        assert torch.equal(r.h, one.h)
+        assert torch.equal(r.inlier_mask, one.inlier_mask)
+        assert torch.equal(r.score, one.score)
+
+
+def test_fused_batch_takes_indices_like_the_single_fit(fit_problem):
+    _, src, tar, _, _, idx = fit_problem
+    cfg = tr.RansacConfig(num_hypotheses=B, threshold=4.0)
+    src2 = torch.stack([T(src), T(src).flip(0)])
+    tar2 = torch.stack([T(tar), T(tar).flip(0)])
+    idx2 = torch.stack([T(idx), N - 1 - T(idx)])
+    res = tr.ransac_homography_fused_batch(None, src2, tar2, cfg, indices=idx2)
+    one = tr.ransac_homography_fused(None, T(src), T(tar), cfg, indices=T(idx))
+    assert len(res) == 2
+    assert torch.equal(res[0].h, one.h)
+    assert torch.equal(res[0].inlier_mask, one.inlier_mask)
+    # The flipped pair is the same problem: the same mask, flipped.
+    assert torch.equal(res[1].inlier_mask, one.inlier_mask.flip(0))
+
+
+@pytest.mark.parametrize("entry", ["find_homography",
+                                   "get_perspective_transform",
+                                   "get_affine_transform"])
+def test_array_inputs_without_a_card_raise(entry, monkeypatch):
+    """Entry points run on the card unless the caller passes CPU tensors:
+    arrays go to the CUDA device, and without one the call raises instead of
+    carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src, tar, _, _ = contaminated(16, n=40)
+    k = {"find_homography": 40, "get_perspective_transform": 4,
+         "get_affine_transform": 3}[entry]
+    fn = getattr(sks_tpu_torch, entry)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        fn(src[:k], tar[:k])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        fn(src[:k].tolist(), tar[:k].tolist())
+    # One tensor among the inputs names the device: both stay there.
+    out = fn(T(src[:k]), tar[:k])
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device.type == "cpu"
+    out = fn(src[:k], T(tar[:k]))
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.device.type == "cpu"
 
 
 def test_paths_not_ported_yet_raise():
