@@ -16,9 +16,12 @@ synthetic truth, holds the CUDA paths against the port's general path on the
 CPU, and times kernels and path with CUDA events (the port's Table 8, float32
 and float64, beside the reference's CUDA fp64 times).
 
-It also times the ablation instances of the NDLT kernels
-(``sks_tpu_torch/bench/ndlt_ablation.py``) and, as yardsticks that the port
-never calls, the PyTorch calls that do the dominant step of NDLT, HO and GPT.
+It also times the ablation instances of the NDLT and HO kernels
+(``sks_tpu_torch/bench/ndlt_ablation.py``, ``ho_ablation.py``), holds the
+Jacobi rotation's hand-written square root and reciprocal against the IEEE
+ones on every float32 of their range, counts the HO kernels' instructions,
+and times, as yardsticks that the port never calls, the PyTorch calls that do
+the dominant step of NDLT, HO and GPT.
 
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
@@ -125,7 +128,14 @@ def main() -> int:
         return 2
 
     import sks_tpu_torch
-    from sks_tpu_torch.bench import fp64_table, ndlt_ablation, roofline, table8
+    from sks_tpu_torch.bench import (
+        fp64_table,
+        ho_ablation,
+        ndlt_ablation,
+        roofline,
+        sass,
+        table8,
+    )
     from sks_tpu_torch.geom.homography import apply_homography, normalize_h
     from sks_tpu_torch.kernels import FP64_SOLVE_KERNELS, SOLVE_KERNELS, _build
     from sks_tpu_torch.kernels import aca_cuda as K
@@ -141,6 +151,7 @@ def main() -> int:
         sample_minimal_sets,
     )
     from sks_tpu_torch.utils.synth import (
+        adversarial_quad_pairs,
         random_correspondences,
         random_quad_pairs,
     )
@@ -154,7 +165,7 @@ def main() -> int:
          precision=torch.get_float32_matmul_precision())
 
     # ---- 2. build ----------------------------------------------------------
-    # The NDLT timing instruments are a library of their own that no kernel
+    # The NDLT and HO timing instruments are a library of their own that no kernel
     # of a path waits for: it compiles beside the checks and is joined at the
     # ablation phase.
     def build_ablation():
@@ -320,6 +331,37 @@ def main() -> int:
                         "max_fro_diff": diff}
                 k34.append(case)
                 check(case["equal_nan_aware"], f"K3/K4 vs plain: {case}")
+    # The kernels that share the Jacobi rotation, on pairs that reach what
+    # random quads never do (collinear, repeated and zero-size quads, squares
+    # that underflow or overflow, NaN and infinity), 64 of each of 16 cases.
+    adv_src, adv_tar, adv_labels = adversarial_quad_pairs(0, 64)
+    adv_s = K.to_soa(torch.from_numpy(adv_src).to(dev))
+    adv_t = K.to_soa(torch.from_numpy(adv_tar).to(dev))
+
+    def adversarial_cases(registry, storages):
+        out = []
+        for solver in ("ho", "ndlt"):
+            solve = registry[solver]
+            for dt in storages:
+                s, t = adv_s.to(dt), adv_t.to(dt)
+                hk, hp = solve.kernel(s, t), solve.plain(s, t)
+                torch.cuda.synchronize()
+                differ = ~((hk == hp) | (torch.isnan(hk) & torch.isnan(hp))
+                           ).all(0)
+                case = {"kernel": solve.key, "B": s.shape[1],
+                        "storage": str(dt)[6:], "input": "adversarial",
+                        "equal_nan_aware": not bool(differ.any()),
+                        "nan_columns": int(torch.isnan(hk).any(0).sum()),
+                        "finite_columns": int(torch.isfinite(hk).all(0).sum()),
+                        "cases_that_differ": sorted(
+                            {adv_labels[i] for i in differ.nonzero()[:, 0]})}
+                out.append(case)
+                check(case["equal_nan_aware"] and case["nan_columns"] > 0
+                      and case["finite_columns"] > 0,
+                      f"adversarial quads, kernel vs plain: {case}")
+        return out
+
+    k34 += adversarial_cases(SOLVE_KERNELS, (torch.float32, torch.bfloat16))
     emit("k3_k4_vs_plain", cases=k34)
 
     # ---- 4c. K5 (six kinds, float64) against its plain version -------------
@@ -348,6 +390,7 @@ def main() -> int:
                 k5.append(case)
                 check(case["equal_nan_aware"] and hk.dtype == torch.float64,
                       f"K5 vs plain: {case}")
+    k5 += adversarial_cases(FP64_SOLVE_KERNELS, (torch.float32, torch.float64))
     emit("k5_vs_plain", cases=k5)
 
     # ---- 5. main path, through the kernels ---------------------------------
@@ -576,6 +619,48 @@ def main() -> int:
          build_seconds=ablation_build["seconds"],
          ptxas=[e for log in _build.BUILD_LOGS.values()
                 for e in ptxas_entries(log) if "Ndlt" in e["entry"]])
+
+    # ---- 6b'. the HO kernels: the rotation's hand-written square root and
+    # reciprocal against the IEEE ones (every float32 of [1, 2], NaN), its
+    # division through float64 against the IEEE one (2^28 pairs), the whole
+    # rotation on special values; then the ablation instances
+    # (csrc/ablation/ho_*.cu).  Forms that compute HO must equal the plain
+    # version.  Each shipped kernel must beat the form it had before its
+    # redesign at B = 2^20 by more than the samples spread (its upper
+    # quartile under the old form's lower quartile), and at B = 10,000 and 1
+    # its median must not be above the old form's by more than 5%.
+    angles = ho_ablation.angle_check()
+    check(angles["sqrt_mismatches"] == 0 and angles["rcp_mismatches"] == 0
+          and angles["division_mismatches"] == 0
+          and angles["angle_mismatches"] == 0
+          and angles["subnormal_quotients"] >= 1 << 20,
+          f"the rotation's short forms are not exact: {angles}")
+    emit("angle_check", **angles)
+    ho_rows = ho_ablation.run_ablation(batch=b1, runs=5, reps=5)
+    by_tag = {(r["tag"], r["batch"]): r for r in ho_rows}
+    for row in ho_rows:
+        # A form that runs fewer sweeps may equal HO all the same: the 3 x 3
+        # Jacobi has converged after 5 of its 10 sweeps on these quads.
+        check(row["equals_plain"] or not row["computes_ho"],
+              f"ho ablation: {row}")
+    for new, old in (("shipped", "before"), ("f64_shipped", "f64_before")):
+        check(by_tag[new, b1]["ms_q3"] < by_tag[old, b1]["ms_q1"],
+              f"{new} is not faster than {old} at B = {b1}: "
+              f"{by_tag[new, b1]} vs {by_tag[old, b1]}")
+        for b in (10_000, 1):
+            check(by_tag[new, b]["ms"] <= 1.05 * by_tag[old, b]["ms"],
+                  f"{new} is slower than {old} at B = {b}: "
+                  f"{by_tag[new, b]} vs {by_tag[old, b]}")
+    emit("ho_ablation", card=smi, rows=ho_rows,
+         ptxas=[e for log in _build.BUILD_LOGS.values()
+                for e in ptxas_entries(log) if "HoCore" in e["entry"]])
+    # The HO kernels' instructions (cuobjdump -sass): a thread's straight
+    # path with the sweep loop run as often as the kernel runs it, the MUFU
+    # that starts each IEEE sequence, branches, and the least time 2^20
+    # threads of that many instructions take on the card's 528 schedulers.
+    emit("ho_sass", card=smi, clocks_hz=list(sass.H100_CLOCKS_HZ),
+         rows=[{k: v for k, v in row.items() if k != "top"}
+               for row in ho_ablation.sass_report()])
 
     # ---- 6c. yardsticks: the library calls that do the dominant step of
     # NDLT (9x9 eigh), HO (3x3 eigh) and GPT (8x8 solve), float32.  The port

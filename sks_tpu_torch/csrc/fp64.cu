@@ -21,16 +21,25 @@
 // The TPU kernel's lane tiles, its hi/lo output and its chain_ref timing
 // nudge do not carry over.
 //
-// What is expected to bound each on an H100 (predictions; no profiler has
-// confirmed them), and what the design does about it:
+// What bounds each on an H100 (measured on an NVIDIA H100 80GB HBM3 at 700 W
+// where it says so: PERF.md), and what the design does about it:
 // - ACA, SKS and GE by device-memory bytes, as K1: 16 values in and 9
 //   doubles out, 200 B per hypothesis from float64 storage (136 B from
-//   float32) for a few hundred float64 ops.  256 threads per block,
-//   coalesced (8, B) access.
-// - GPT and HO by float64 arithmetic and registers.  The card's non-tensor
-//   float64 rate is half its float32 rate, IEEE float64 division and sqrt
-//   are multi-instruction sequences, and a double takes two registers.  Block
-//   sizes as in K4 (128 threads); no instance spills.
+//   float32) for a few hundred float64 ops; they run at ~84% of that bound.
+//   256 threads per block, coalesced (8, B) access.
+// - GPT by bytes too (70% of the bound): 581 float64 operations, 128 threads.
+// - HO by latency: 793 float64 operations (22 divisions and 8 square roots
+//   among them, each a sequence of a dozen dependent DFMAs; the compiler
+//   shares no reciprocal between quotients of one divisor: 25 MUFU.RCP64H)
+//   and a 4-sweep float32 Jacobi seed of 852, at 166 registers: 12 warps an
+//   SM.  Measured (bench/ho_ablation.py): the seed alone 0.189 ms, the
+//   float64 solves alone 0.111, both 0.203: they overlap, on different
+//   pipes.  What paid: __launch_bounds__(128, 4), 128 registers with 40-48 B
+//   of spills, 16 warps an SM (0.192 -> 0.166 ms; 96 registers and 250 B of
+//   spills lose again, 0.167-0.179), and the rotation of K4-HO, whose seed
+//   reaches zero and subnormal numerators in its last sweep too
+//   (baselines.cuh::DivTiny: 0.166 -> 0.157).  The seed as a loop changed
+//   nothing by itself (0.204).
 // - NDLT by instruction rate and registers in its float32 Jacobi seed
 //   (sweeps are ~95% of the time, as in K4-NDLT: see baselines.cu).  The
 //   float64 LDL^T part needs ~190 registers whatever the seed does, so the
@@ -58,8 +67,9 @@ constexpr int kGptThreads = 128;
 constexpr int kHoThreads = 128;
 constexpr int kNdltThreads = 64;
 constexpr int kNdltMinBlocks = 6;  // 168 registers a thread
+constexpr int kHoMinBlocks = 4;    // 128 registers a thread
 
-using HoF64 = HoCore<double, Invit64<4, VRegs>>;
+using HoF64 = HoCore<double, Invit64<4, VRegs, true, DivTiny>>;
 using NdltF64 = NdltCore<double, Invit64<3, VRegs, true>>;
 
 }  // namespace
@@ -68,5 +78,5 @@ SKS_EXPORT_FP64(aca, AcaCore<double>, kBytesThreads)
 SKS_EXPORT_FP64(sks, SksCore<double>, kBytesThreads)
 SKS_EXPORT_FP64(ge, GeCore<double>, kBytesThreads)
 SKS_EXPORT_FP64(gpt, GptCore<double>, kGptThreads)
-SKS_EXPORT_FP64(ho, HoF64, kHoThreads)
+SKS_EXPORT_FP64_BOUNDED(ho, HoF64, kHoThreads, kHoMinBlocks)
 SKS_EXPORT_FP64_BOUNDED(ndlt, NdltF64, kNdltThreads, kNdltMinBlocks)

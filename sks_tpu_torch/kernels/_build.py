@@ -9,9 +9,10 @@ edited source or header rebuilds and an unchanged tree loads at once.
 Nothing here runs at import: the CPU tests import every module on machines
 without ``nvcc`` or a card.
 
-The NDLT timing instruments (``csrc/ablation/*.cu``) are a second library,
-built the same way and only when ``bench/ndlt_ablation.py`` asks for it
-(:func:`load_ablation_library`): no kernel of a path waits for them.
+The NDLT and HO timing instruments (``csrc/ablation/*.cu``) are a second
+library, built the same way and only when ``bench/ndlt_ablation.py`` or
+``bench/ho_ablation.py`` asks for it (:func:`load_ablation_library`): no
+kernel of a path waits for them.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_LOGS", "FP64_KINDS", "NDLT_ABLATIONS", "NVCC_FLAGS",
+__all__ = ["BUILD_LOGS", "FP64_KINDS", "HO_ABLATIONS", "NDLT_ABLATIONS",
+           "NVCC_FLAGS",
            "SOLVE_KERNELS", "find_nvcc", "library_path",
            "load_ablation_library", "load_library"]
 
@@ -88,6 +90,24 @@ NDLT_ABLATIONS = (
     "regs_s0_l0", "regs_s0_l3", "regs_s1_l3", "regs_s2_l3", "regs_s3_l3",
     "regs_s3_l0", "regs_s3_l3_mb6", "regs_s3_l3_mb8",
     "regs_roll", "regs_roll_reload_mb6", "f64_regs", "f64_smem_reload",
+    "ieee", "f64_ieee",
+)
+
+#: Timing instruments for K4-HO and K5-ho (``csrc/ablation/ho_*.cu``, the
+#: same library, driven by ``bench/ho_ablation.py``): ``sks_ho_abl_<tag>(src,
+#: tar, out, B, stream)`` on float32 storage, the ``f64_`` ones on float64
+#: (instances of K5-ho).  ``csrc/ablation/ablation.cuh`` says what each is.
+#: ``sks_ho_abl_angle_check`` (``angle_check.cu``) is no solve: it holds the
+#: rotation's hand-written square root, reciprocal and division against the
+#: IEEE ones.
+HO_ABLATIONS = (
+    "before", "unroll_s0", "unroll_s2", "unroll_s5", "noeig",
+    "roll_s2", "roll_s5", "roll_s10", "roll_abs", "roll_unit", "roll_div64",
+    "roll_tiny64", "tiny_t64", "tiny_t256", "roll_approx",
+    "f64_before", "f64_seed_only", "f64_refine_only", "f64_roll", "f64_unit",
+    "f64_unit_mb4", "f64_unit_mb5", "f64_tiny64_mb4", "f64_tiny",
+    "f64_tiny_mb3", "f64_tiny_mb4", "f64_tiny_mb5", "f64_tiny_t64_mb7",
+    "f64_tiny_t64_mb8", "f64_tiny_t64_mb9",
 )
 
 
@@ -116,7 +136,12 @@ def _declare_solves(lib: ctypes.CDLL, names) -> None:
 
 
 def _declare_ablation(lib: ctypes.CDLL) -> None:
-    _declare_solves(lib, [f"sks_ndlt_abl_{tag}" for tag in NDLT_ABLATIONS])
+    _declare_solves(lib, [f"sks_ndlt_abl_{tag}" for tag in NDLT_ABLATIONS]
+                    + [f"sks_ho_abl_{tag}" for tag in HO_ABLATIONS])
+    # values, n, counts, stream
+    lib.sks_ho_abl_angle_check.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.sks_ho_abl_angle_check.restype = ctypes.c_int
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -190,5 +215,5 @@ def load_library() -> ctypes.CDLL:
 
 
 def load_ablation_library() -> ctypes.CDLL:
-    """Build (if needed) and load the NDLT timing instruments; cached."""
+    """Build (if needed) and load the NDLT and HO timing instruments; cached."""
     return _load("ablation", _declare_ablation)

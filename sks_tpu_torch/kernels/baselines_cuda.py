@@ -22,8 +22,14 @@ Each is one thread per hypothesis on the ``(8, B)`` layout, 16 values in and
 the op counts are the arithmetic operations of the plain version
 (``bench/roofline.py``; compares and selects apart), and "bound" is which of bytes at the card's memory
 rate or operations at its float32 rate takes longer.  GE runs at the byte
-bound like K1.  GPT and HO keep their tableau and Jacobi state in registers
-(every static loop unrolled).  NDLT's time is its 9x9 Jacobi seed, 108
+bound like K1.  GPT keeps its tableau in registers (every static loop
+unrolled).  HO's time is its 30 Jacobi rotations: the 10 sweeps are a loop,
+and the rotation keeps every rounding of the plain version in fewer
+instructions, with an exact sequence for the zero and subnormal numerators
+that a converged Jacobi divides, which the compiler's IEEE division sends
+down its slow path (``csrc/baselines.cuh::Rotation``, ``DivTiny``;
+``bench/ho_ablation.py`` has the ablation and the check that holds those
+forms against the IEEE ones).  NDLT's time is its 9x9 Jacobi seed, 108
 rotations that each start with a dependent sqrt, division, sqrt, division:
 what it needs is more resident warps to hide that chain, so the seed's
 81-entry eigenvector matrix lives in shared memory (``[entry][thread]``,

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -21,6 +22,7 @@ __all__ = [
     "random_plane_homographies",
     "random_correspondences",
     "random_quad_pairs",
+    "adversarial_quad_pairs",
 ]
 
 
@@ -110,3 +112,96 @@ def random_quad_pairs(generator: torch.Generator, batch: int,
     """Random general-position 4-point pairs, (batch, 4, 2) each."""
     src, tar, _ = random_correspondences(generator, (batch,), 4, 0.0, dtype)
     return src, tar
+
+
+def adversarial_quad_pairs(seed: int = 0, per_case: int = 6):
+    """4-point pairs that reach the branches well-conditioned quads never do.
+
+    Seeded numpy (so both packages can be fed the same arrays): ``per_case``
+    random quads in a 640 x 480 image, displaced by ~20 px, are bent into each
+    of these cases, in this order:
+
+    ================  ====================================================
+    ``general``       left as drawn
+    ``collinear``     the 4 source points on one line (G singular: its
+                      determinant is 0 up to rounding, its inverse infinite)
+    ``collinear3``    3 source points on one line
+    ``collinear_y``   the 4 source points on one horizontal line (the
+                      determinant of G is exactly 0)
+    ``repeated``      source point 1 equal to source point 0
+    ``point``         all 4 source points equal (a zero-size quad: the
+                      mean distance falls under the scale floor)
+    ``point_tar``     all 4 target points equal
+    ``subtiny``       source quad of size ~1e-39 (mean distance subnormal,
+                      where the float32 and float64 branches floor apart)
+    ``small``         every coordinate times 1e-20 (squares underflow)
+    ``large``         every coordinate times 1e18 (products overflow)
+    ``small_large``   source times 1e-20, target times 1e18
+    ``identity``      target equal to source (a zero residual matrix)
+    ``nan``           one source coordinate NaN
+    ``nan_tar``       one target coordinate NaN
+    ``inf``           one source coordinate infinite
+    ``inf_tar``       one target coordinate infinite
+    ================  ====================================================
+
+    Returns ``(src, tar, labels)``: float64 arrays of shape
+    ``(16 * per_case, 4, 2)`` and the case of each pair.
+    """
+    rng = np.random.default_rng(seed)
+    cells = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
+
+    def draw():
+        s = (cells + rng.uniform(0.15, 0.85, (per_case, 4, 2))) * (320.0, 240.0)
+        return s, s + rng.normal(0.0, 20.0, (per_case, 4, 2))
+
+    def collinear(s, t, count):
+        step = rng.uniform(-40.0, 40.0, (per_case, 1, 2))
+        along = np.arange(4.0)[None, :, None]
+        line = s[:, :1] + step * along
+        s[:, :count] = line[:, :count]
+        return s, t
+
+    def poke(which, value):
+        def bend(s, t):
+            arr = s if which == "src" else t
+            arr[np.arange(per_case), rng.integers(0, 4, per_case),
+                rng.integers(0, 2, per_case)] = value
+            return s, t
+        return bend
+
+    def scaled(fs, ft):
+        return lambda s, t: (s * fs, t * ft)
+
+    def subtiny(s, t):
+        return (s - s.mean(1, keepdims=True)) * (1e-39 / 320.0), t
+
+    def collinear_y(s, t):
+        s[..., 1] = np.round(s[:, :1, 1])
+        return s, t
+
+    cases = {
+        "general": lambda s, t: (s, t),
+        "collinear": lambda s, t: collinear(s, t, 4),
+        "collinear3": lambda s, t: collinear(s, t, 3),
+        "collinear_y": collinear_y,
+        "repeated": lambda s, t: (np.concatenate([s[:, :1], s[:, :1],
+                                                  s[:, 2:]], 1), t),
+        "point": lambda s, t: (np.repeat(s[:, :1], 4, 1), t),
+        "point_tar": lambda s, t: (s, np.repeat(t[:, :1], 4, 1)),
+        "subtiny": subtiny,
+        "small": scaled(1e-20, 1e-20),
+        "large": scaled(1e18, 1e18),
+        "small_large": scaled(1e-20, 1e18),
+        "identity": lambda s, t: (s, s.copy()),
+        "nan": poke("src", np.nan),
+        "nan_tar": poke("tar", np.nan),
+        "inf": poke("src", np.inf),
+        "inf_tar": poke("tar", np.inf),
+    }
+    src, tar, labels = [], [], []
+    for name, bend in cases.items():
+        s, t = bend(*draw())
+        src.append(s)
+        tar.append(t)
+        labels += [name] * per_case
+    return np.concatenate(src), np.concatenate(tar), labels

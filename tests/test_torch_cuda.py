@@ -21,7 +21,11 @@ from sks_tpu_torch.kernels import FP64_SOLVE_KERNELS, SOLVE_KERNELS
 from sks_tpu_torch.kernels import aca_cuda as K
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 from sks_tpu_torch.robust.ransac import sample_minimal_sets
-from sks_tpu_torch.utils.synth import random_correspondences, random_quad_pairs
+from sks_tpu_torch.utils.synth import (
+    adversarial_quad_pairs,
+    random_correspondences,
+    random_quad_pairs,
+)
 
 
 @pytest.fixture
@@ -203,6 +207,51 @@ def test_ndlt_kernels_equal_plain_at_full_batch(dev):
         assert _equal_nan(k4.kernel(s.float(), t.float()),
                           k4.plain(s.float(), t.float()))
         assert _equal_nan(k5.kernel(s, t), k5.plain(s, t))
+
+
+@pytest.mark.parametrize("solver", ["ho", "ndlt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_jacobi_kernels_equal_plain_on_adversarial_quads(dev, solver, dtype):
+    """Collinear, repeated and zero-size quads, squares that underflow or
+    overflow, NaN and infinity: the kernels that share the Jacobi rotation
+    (K4-HO, K4-NDLT from float32 and bfloat16 storage; K5-ho, K5-ndlt from
+    float32 and float64) equal their plain versions value for value, a NaN
+    where the plain version has one."""
+    src, tar, labels = adversarial_quad_pairs(0, 64)
+    s = K.to_soa(torch.from_numpy(src).to(dev)).to(dtype)
+    t = K.to_soa(torch.from_numpy(tar).to(dev)).to(dtype)
+    registries = {torch.bfloat16: (SOLVE_KERNELS,),
+                  torch.float32: (SOLVE_KERNELS, FP64_SOLVE_KERNELS),
+                  torch.float64: (FP64_SOLVE_KERNELS,)}[dtype]
+    for registry in registries:
+        solve = registry[solver]
+        hk, hp = solve.kernel(s, t), solve.plain(s, t)
+        torch.cuda.synchronize()
+        differ = ~((hk == hp) | (torch.isnan(hk) & torch.isnan(hp))).all(0)
+        assert not differ.any(), (
+            solve.key, sorted({labels[i] for i in differ.nonzero()[:, 0]}))
+        # The set reaches both outcomes: NaN columns and finite ones.
+        assert torch.isnan(hk).any() and torch.isfinite(hk).all(0).any()
+
+
+def test_rotation_square_root_and_reciprocal_are_correctly_rounded(dev):
+    """``csrc/baselines.cuh``: ``sqrt_1to2`` and ``rcp_1to2`` equal ``sqrtf``
+    and ``1.0f / x`` on every float32 of [1, 2] and on NaN; the division of
+    a tiny numerator through float64 equals ``num / den`` on 2^28 pairs, a
+    good part of them with a subnormal quotient; and the shipped rotations
+    equal the rotation as the plain version writes it on every triple of the
+    special values (zeros, subnormals, values whose squares underflow or
+    overflow, infinities, NaN)."""
+    from sks_tpu_torch.bench.ho_ablation import angle_check
+
+    res = angle_check()
+    assert res["unit_range_arguments"] == 2 ** 23 + 2
+    assert res["angle_triples"] >= 75 ** 3
+    assert res["division_pairs"] == 2 ** 28
+    assert res["subnormal_quotients"] >= 2 ** 20
+    assert (res["sqrt_mismatches"], res["rcp_mismatches"],
+            res["division_mismatches"], res["angle_mismatches"]) == (0,) * 4
 
 
 def test_cuda_wrappers_raise_on_mixed_devices(dev):

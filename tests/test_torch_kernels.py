@@ -437,7 +437,8 @@ def test_build_flags_keep_ieee_scoring():
                                          "sks.cu"]
     # The timing instruments are a library of their own, built on demand.
     assert [p.name for p in _build._sources("ablation")] == [
-        "caps.cu", "f64.cu", "full.cu", "rolled.cu", "sweeps.cu"]
+        "angle_check.cu", "caps.cu", "f64.cu", "full.cu", "ho_f64.cu",
+        "ho_rolled.cu", "ho_sweeps.cu", "ieee.cu", "rolled.cu", "sweeps.cu"]
     exported = "".join(p.read_text() for p in _build._sources("ablation"))
     for tag in _build.NDLT_ABLATIONS:
         assert exported.count(f"({tag},") == 1

@@ -91,3 +91,15 @@ def from_tiles(tiles) -> np.ndarray:
     """The TPU's (C, M, 128) lane tiles as the port's (C, M * 128)."""
     a = to_np(tiles)
     return a.reshape(a.shape[0], -1)
+
+
+def adversarial_quads(seed: int = 0, per_case: int = 8, dtype=np.float32):
+    """(src, tar, labels): the port's adversarial 4-point pairs
+    (``sks_tpu_torch.utils.synth.adversarial_quad_pairs``: collinear,
+    repeated and zero-size quads, coordinates whose squares underflow or
+    overflow, NaN and infinity), ``16 * per_case`` of them; 128 at the
+    default, one lane row of the TPU layout."""
+    from sks_tpu_torch.utils.synth import adversarial_quad_pairs
+
+    src, tar, labels = adversarial_quad_pairs(seed, per_case)
+    return src.astype(dtype), tar.astype(dtype), labels
