@@ -16,6 +16,13 @@ synthetic truth, holds the CUDA paths against the port's general path on the
 CPU, and times kernels and path with CUDA events (the port's Table 8, float32
 and float64, beside the reference's CUDA fp64 times).
 
+A second path, with the counters reset again: the confidence early-exit loop
+(``find_homography(confidence=...)``: eager chunks through K1, float64 ones
+through K5, fused stages through K2), PROSAC sampling and a batched
+early-exit fit; then the per-chunk fused-versus-eager table behind
+``FUSED_ADAPTIVE_MIN_CHUNK`` (``sks_tpu_torch/bench/fused_adaptive.py``), and
+the rectangle solvers and the SKS / ACA factorizations on CUDA tensors.
+
 It also times the ablation instances of the NDLT and HO kernels
 (``sks_tpu_torch/bench/ndlt_ablation.py``, ``ho_ablation.py``), holds the
 Jacobi rotation's hand-written square root and reciprocal against the IEEE
@@ -25,7 +32,7 @@ the dominant step of NDLT, HO and GPT.
 
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
-launches on the main path, error against its plain version, times and bound
+launches on the main path and on the adaptive path, error against its plain version, times and bound
 (``sks_tpu_torch/bench/roofline.py``); and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without the last line.  Without a CUDA device, or outside the
@@ -130,6 +137,7 @@ def main() -> int:
     import sks_tpu_torch
     from sks_tpu_torch.bench import (
         fp64_table,
+        fused_adaptive,
         ho_ablation,
         ndlt_ablation,
         roofline,
@@ -147,6 +155,7 @@ def main() -> int:
         RansacConfig,
         fused_kernel_threshold,
         ransac_homography,
+        ransac_homography_adaptive,
         ransac_homography_fused,
         sample_minimal_sets,
     )
@@ -199,8 +208,10 @@ def main() -> int:
     b1 = 1 << 20
     q_src, q_tar = random_quad_pairs(gen, b1)
     s_soa, t_soa = K.to_soa(q_src), K.to_soa(q_tar)
+    # Batches: the Table-8 one, a ragged one, and the eager chunks of the
+    # adaptive loop's first stages.
     k1 = []
-    for b in (b1, 1000):
+    for b in (b1, 1000, 256, 1024, 4096):
         s, t = s_soa[:, :b].contiguous(), t_soa[:, :b].contiguous()
         hk = K.aca_solve_soa(s, t)
         hp = K.aca_solve_soa_plain(s, t)
@@ -226,7 +237,11 @@ def main() -> int:
     # pairwise sum.  The kernel's own order is fixed: the same launch twice
     # must give the same bits.  Shapes: the default and the large hypothesis
     # budget, a ragged N, an N smaller than one warp's slice, weights that
-    # drop a tenth of the points, one pair and a pair axis of 8.
+    # drop a tenth of the points, one pair and a pair axis of 8; then the
+    # launches of the adaptive path, whose hypothesis counts set grids (and
+    # with them orders of the sum) of their own: a PROSAC fit of 512, and
+    # fused stages of 16,384 (one grid step under the shipped gate, should
+    # it move), 65,536 (above) and the schedule's cap.
     def score_problem(n, pairs, b):
         """``pairs`` problems of n matches (half of them junk) with b minimal
         sets each: src, tar (pairs, 8, b), pts (pairs, 4, n), w (pairs, n)."""
@@ -248,7 +263,8 @@ def main() -> int:
     k2_rel = 0.0
     for b, n, pairs in ((2048, 2000, 1), (b2, 2000, 1), (2048, 1999, 1),
                         (2048, 20, 1), (2048, 2000, 8), (2048, 1999, 8),
-                        (2048, 20, 8)):
+                        (2048, 20, 8), (512, 2000, 1), (16384, 2000, 1),
+                        (R.ADAPTIVE_MAX_CHUNK, 2000, 1)):
         s, t, pts, w = score_problem(n, pairs, b)
         if pairs == 1:  # the two-dimensional call
             s, t, pts, w = s[0], t[0], pts[0], w[0]
@@ -374,7 +390,7 @@ def main() -> int:
     s64_soa, t64_soa = K.to_soa(q_src64), K.to_soa(q_tar64)
     k5 = []
     for solver, solve in FP64_SOLVE_KERNELS.items():
-        for b in (b1, 1000):
+        for b in (b1, 1000, 256, 4096):  # the last two: adaptive chunks
             for dt in (torch.float32, torch.float64):
                 s = s64_soa[:, :b].to(dt).contiguous()
                 t = t64_soa[:, :b].to(dt).contiguous()
@@ -563,6 +579,125 @@ def main() -> int:
           f"float64 fits must run K5 and not K2: {launches_fp64_fits}")
     emit("main_path", **main)
 
+    # ---- 5b. the adaptive path: the confidence early-exit loop and PROSAC ---
+    # A chunk of the loop launches one solve-or-score kernel, so the launch
+    # counts are the chunks evaluated: K1 an eager float32 chunk, K5-aca an
+    # eager float64 one, K2 a fused one.
+    def corner_err(h, h_true):
+        c = corners.to(h.dtype)
+        return (apply_homography(h, c) - apply_homography(h_true.to(h.dtype), c)
+                ).norm(dim=-1).mean().item()
+
+    def schedule(max_iters, chunk=256):
+        return [c for c, k in R._chunk_schedule(
+            chunk, -(-max_iters // chunk), 4, 2, R.ADAPTIVE_MAX_CHUNK)
+            for _ in range(k)]
+
+    problem95 = problem(3, 2000, 0.95)
+    iters95 = 1 << 21
+    # Quality-sorted points for PROSAC: the inliers first.
+    src, tar, h_true, true_inl = problems["50pct"][0]
+    by_quality = torch.argsort(true_inl.to(torch.int8), descending=True,
+                               stable=True)
+    sorted50 = (src[by_quality], tar[by_quality], h_true, true_inl[by_quality])
+    pairs4 = [problem(30 + i, 2000, f) for i, f in enumerate((0.3, 0.5, 0.7,
+                                                              0.5))]
+    src4 = torch.stack([p[0] for p in pairs4])
+    tar4 = torch.stack([p[1] for p in pairs4])
+
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    runs = {}
+
+    def counted(name, fit):
+        """Run one fit; keep its result and the launches it made."""
+        before = dict(K.LAUNCHES)
+        out = fit()
+        torch.cuda.synchronize()
+        runs[name] = (out, {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+                            if K.LAUNCHES[k] != before[k]})
+
+    counted("50pct", lambda: sks_tpu_torch.find_homography(
+        *problems["50pct"][0][:2], ransac_reproj_threshold=3.0,
+        confidence=0.999))
+    counted("95pct_fused", lambda: sks_tpu_torch.find_homography(
+        *problem95[:2], method="fused", ransac_reproj_threshold=3.0,
+        confidence=0.999, max_iters=iters95))
+    counted("50pct_fp64", lambda: sks_tpu_torch.find_homography(
+        *problem64[:2], ransac_reproj_threshold=3.0, confidence=0.999))
+    counted("50pct_prosac_fused", lambda: sks_tpu_torch.find_homography(
+        *sorted50[:2], ransac_reproj_threshold=3.0, max_iters=512,
+        sampling="prosac"))
+    counted("50pct_prosac_confidence", lambda: sks_tpu_torch.find_homography(
+        *sorted50[:2], ransac_reproj_threshold=3.0, confidence=0.999,
+        sampling="prosac"))
+    counted("batched_4_pairs", lambda: sks_tpu_torch.find_homography(
+        src4, tar4, ransac_reproj_threshold=3.0, confidence=0.999,
+        max_iters=1 << 16,
+        generator=torch.Generator(device=dev).manual_seed(4)))
+    launches_adaptive = dict(K.LAUNCHES)
+    g4 = torch.Generator(device=dev).manual_seed(4)
+    singles4 = [sks_tpu_torch.find_homography(
+        src4[i], tar4[i], ransac_reproj_threshold=3.0, confidence=0.999,
+        max_iters=1 << 16, generator=g4) for i in range(4)]
+
+    adaptive = {"launches": launches_adaptive,
+                "fused_adaptive_min_chunk": R.FUSED_ADAPTIVE_MIN_CHUNK}
+    for name, (_, _, h_true, true_inl) in (
+            ("50pct", problems["50pct"][0]), ("95pct_fused", problem95),
+            ("50pct_fp64", problem64), ("50pct_prosac_fused", sorted50),
+            ("50pct_prosac_confidence", sorted50)):
+        (h, mask), made = runs[name]
+        adaptive[name] = {
+            "corner_err_px": corner_err(h, h_true),
+            "inlier_agreement": (mask == true_inl).float().mean().item(),
+            "launches": made}
+        check(adaptive[name]["corner_err_px"] < 1.0
+              and adaptive[name]["inlier_agreement"] >= 0.95,
+              f"adaptive {name}: {adaptive[name]}")
+    # An easy fit stops within the first two chunks (256, 256), eager
+    # chunks through K1 and nothing else.
+    made = adaptive["50pct"]["launches"]
+    check(set(made) == {"aca_solve"} and 1 <= made["aca_solve"] <= 2,
+          f"the 50% fit must stop within the first two chunks on K1: {made}")
+    # method='fused': the stages from FUSED_ADAPTIVE_MIN_CHUNK on run K2, one
+    # launch a chunk; the smaller ones before them K1.
+    made = adaptive["95pct_fused"]["launches"]
+    sizes = schedule(iters95)[:sum(made.values())]
+    fused_chunks = sum(c >= R.FUSED_ADAPTIVE_MIN_CHUNK for c in sizes)
+    adaptive["95pct_fused"].update(
+        max_iters=iters95, chunks=len(sizes), hypotheses=sum(sizes),
+        fused_chunks=fused_chunks)
+    check(set(made) <= {"aca_solve", "aca_solve_score"}
+          and made.get("aca_solve_score", 0) == fused_chunks >= 1
+          and made.get("aca_solve", 0) == len(sizes) - fused_chunks,
+          f"the fused adaptive fit must launch K2 once a fused chunk: "
+          f"{adaptive['95pct_fused']}")
+    made = adaptive["50pct_fp64"]["launches"]
+    check(set(made) == {"fp64_aca"} and runs["50pct_fp64"][0][0].dtype
+          == torch.float64, f"the float64 adaptive fit must run K5-aca: {made}")
+    check(adaptive["50pct_prosac_fused"]["launches"] == {"aca_solve_score": 1},
+          "a fixed-batch PROSAC fit on the card takes the fused kernel once: "
+          f"{adaptive['50pct_prosac_fused']}")
+    (h4, mask4), made = runs["batched_4_pairs"]
+    batched = {"launches": made, "pairs_out": []}
+    for i, (_, _, h_true, true_inl) in enumerate(pairs4):
+        same = (torch.equal(h4[i], singles4[i][0])
+                and torch.equal(mask4[i], singles4[i][1]))
+        batched["pairs_out"].append({
+            "corner_err_px": corner_err(h4[i], h_true),
+            "equals_single_fit": same})
+        check(same and batched["pairs_out"][-1]["corner_err_px"] < 1.0,
+              f"batched adaptive fit, pair {i}: {batched}")
+    check(h4.shape == (4, 3, 3) and mask4.shape == (4, 2000),
+          "batched adaptive fit: output shapes")
+    adaptive["batched_4_pairs"] = batched
+    check(launches_adaptive["aca_solve"] >= 1
+          and launches_adaptive["aca_solve_score"] >= 1
+          and launches_adaptive["fp64_aca"] >= 1,
+          f"the adaptive path must launch K1, K2 and K5: {launches_adaptive}")
+    emit("adaptive", **adaptive)
+
     # ---- 6. port consistency: CUDA paths == the general path on the CPU ----
     # Same minimal sets (indices=) on both sides; the same mask, and H within
     # the bound after Frobenius normalization: 1e-4 where the CUDA path works
@@ -603,7 +738,117 @@ def main() -> int:
         consistent(f"{solver}_fp64", RansacConfig(
             num_hypotheses=2048, threshold=3.0, solver=solver),
             src64, tar64, idx, 1e-9)
+    # The adaptive loop on the card against the same loop on CPU tensors, on
+    # the same draws for the whole schedule: the same number of chunks, and
+    # masks agreeing on >= 95% of the points.
+    src, tar, _, _ = problem(5, 2000, 0.7)
+    cfg = RansacConfig(num_hypotheses=256, threshold=3.0)
+    idx_all = sample_minimal_sets(gen, 2000, sum(schedule(1 << 14)))
+    chunks = []
+    eval_chunk = R._eval_chunk
+
+    def counting_eval_chunk(*args, **kwargs):
+        chunks[-1] += 1
+        return eval_chunk(*args, **kwargs)
+
+    R._eval_chunk = counting_eval_chunk
+    try:
+        fits_ad = []
+        for s, t, i in ((src, tar, idx_all), (src.cpu(), tar.cpu(),
+                                              idx_all.cpu())):
+            chunks.append(0)
+            fits_ad.append(ransac_homography_adaptive(
+                None, s, t, cfg, confidence=0.999, max_chunks=64, indices=i))
+    finally:
+        R._eval_chunk = eval_chunk
+    agree = (fits_ad[0].inlier_mask.cpu() == fits_ad[1].inlier_mask
+             ).float().mean().item()
+    consistency["aca_adaptive"] = {
+        "chunks_cuda": chunks[0], "chunks_cpu": chunks[1],
+        "mask_agreement": agree,
+        "h_max_fro_diff": (normalize_h(fits_ad[0].h.cpu(), "fro")
+                           - normalize_h(fits_ad[1].h, "fro")
+                           ).abs().max().item()}
+    check(chunks[0] == chunks[1] >= 1 and agree >= 0.95,
+          f"adaptive fit, CUDA vs CPU: {consistency['aca_adaptive']}")
     emit("port_consistency", **consistency)
+
+    # ---- 6a. the rectangle solvers and the factorizations on the card ------
+    # Exact quads: each rect-family H must carry its source rectangle onto
+    # the target quad (median under 0.01 px, finite on >= 99.9%, float32), and
+    # each factorization's reconstruct() must be its solver's H (median
+    # difference after Frobenius normalization under 1e-4).
+    from sks_tpu_torch import ops
+
+    origin = torch.rand((b1, 2), generator=gen, device=dev) * 64.0
+    size = 64.0 + torch.rand((b1, 2), generator=gen, device=dev) * 192.0
+    rect_family = {}
+    for name, h, quad in (
+            ("aca_rect", ops.aca_rect(q_tar, origin, size),
+             ops.rect_corners(origin, size)),
+            ("aca_square", ops.aca_square(q_tar, origin, size[:, 0]),
+             ops.rect_corners(origin, size[:, :1].expand(-1, 2))),
+            ("aca_qr", ops.aca_qr(q_tar),
+             ops.rect_corners(torch.zeros_like(origin),
+                              torch.ones_like(size)))):
+        reproj = (apply_homography(h, quad) - q_tar).norm(dim=-1)
+        finite = torch.isfinite(reproj).all(-1)
+        vs_aca = (normalize_h(h, "fro") - normalize_h(ops.aca(quad, q_tar),
+                                                      "fro")).abs()
+        rect_family[name] = {
+            "finite_frac": finite.float().mean().item(),
+            "median_reproj_px": reproj[finite].median().item(),
+            "median_fro_diff_vs_aca": vs_aca.amax((-2, -1))[finite].median(
+                ).item()}
+        check(h.device.type == "cuda"
+              and rect_family[name]["finite_frac"] >= 0.999
+              and rect_family[name]["median_reproj_px"] < 0.01
+              and rect_family[name]["median_fro_diff_vs_aca"] < 1e-4,
+              f"{name} on the card: {rect_family[name]}")
+    for name, factors, solver in (("sks_factors", ops.sks_factors, ops.sks),
+                                  ("aca_factors", ops.aca_factors, ops.aca)):
+        f = factors(q_src, q_tar)
+        d = (normalize_h(f.reconstruct(), "fro")
+             - normalize_h(solver(q_src, q_tar), "fro")).abs().amax((-2, -1))
+        finite = torch.isfinite(d)
+        rect_family[name] = {"finite_frac": finite.float().mean().item(),
+                             "median_fro_diff_vs_solver":
+                                 d[finite].median().item(),
+                             "p999_fro_diff_vs_solver":
+                                 d[finite].quantile(0.999).item()}
+        check(rect_family[name]["finite_frac"] >= 0.999
+              and rect_family[name]["median_fro_diff_vs_solver"] < 1e-4,
+              f"{name} on the card: {rect_family[name]}")
+    h_e, h_t, h_g, _ = ops.sks_kernel_chain(ops.sks_factors(q_src,
+                                                            q_tar).params)
+    h_k = ops.sks_factors(q_src, q_tar).h_k
+    chain_err = ((h_e @ h_t @ h_g @ h_e - h_k).abs().amax((-2, -1))
+                 / h_k.abs().amax((-2, -1)))
+    rect_family["sks_kernel_chain"] = {
+        "max_rel_err": chain_err[torch.isfinite(chain_err)].max().item()}
+    check(rect_family["sks_kernel_chain"]["max_rel_err"] <= 1e-5,
+          f"sks_kernel_chain on the card: {rect_family['sks_kernel_chain']}")
+    emit("rect_and_factors", batch=b1, **rect_family)
+
+    # ---- 6a'. the fused-versus-eager crossover of the adaptive loop --------
+    # (bench/fused_adaptive.py: per chunk and end to end.)  The shipped
+    # FUSED_ADAPTIVE_MIN_CHUNK must be what this run measures, or one step of
+    # the size grid away (the two chunks tie near a point count's crossover).
+    fa = fused_adaptive.run(generators=2)
+    grid = list(fused_adaptive.CHUNK_SIZES)
+    check(fa["crossover_chunk"] is not None,
+          f"the fused chunk never wins: {fa['crossover']}")
+    check(R.FUSED_ADAPTIVE_MIN_CHUNK in grid,
+          f"FUSED_ADAPTIVE_MIN_CHUNK = {R.FUSED_ADAPTIVE_MIN_CHUNK} is not a "
+          f"size of the grid {grid}")
+    steps = abs(grid.index(fa["crossover_chunk"])
+                - grid.index(R.FUSED_ADAPTIVE_MIN_CHUNK))
+    check(steps <= 1,
+          f"FUSED_ADAPTIVE_MIN_CHUNK = {R.FUSED_ADAPTIVE_MIN_CHUNK} is "
+          f"{steps} grid steps from the measured {fa['crossover_chunk']}")
+    for row in fa["end_to_end"]:
+        check(row["corner_err_px_max"] < 1.0, f"adaptive fit: {row}")
+    emit("fused_adaptive", grid_steps_from_shipped=steps, **fa)
 
     # ---- 6b. what sets the NDLT kernels' time: the ablation instances ------
     # (csrc/ablation/*.cu; 3-sweep, 3-solve forms must equal the plain
@@ -843,9 +1088,13 @@ def main() -> int:
          work=work)
     # library_ms: no single PyTorch call computes any of these functions
     # whole (the yardsticks above time a dominant step, not the function).
+    # launches: the main path's; launches_adaptive: the adaptive path's.
+    # Each path was driven with the counts set to 0 just before it.
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errors[name],
+         "launches": launches[name],
+         "launches_adaptive": launches_adaptive[name],
+         "max_abs_err": errors[name],
          "ms": timed[name][0], "plain_ms": timed[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": None}

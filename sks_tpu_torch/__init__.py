@@ -9,11 +9,12 @@ runs hand-written Hopper kernels (``sks_tpu_torch.kernels``); on CPU tensors
 each kernel's plain PyTorch version runs instead.
 
 The port covers the robust homography fit (``find_homography`` with its fused
-ACA solve+score kernel) and the batched 4-point solve of all six solvers of
-the paper's Table 8 (ACA, SKS, RHO-GE, GPT-LU, HO, NDLT), each with its
-kernel, in float32 and in native float64 (the ``*_fp64`` ops, fp64 RANSAC
-scoring, kernel K5); the rest of ``sks_tpu`` follows slice by slice (see
-ROADMAP.md).
+ACA solve+score kernel, the confidence early-exit loop and PROSAC sampling),
+the batched 4-point solve of all six solvers of the paper's Table 8 (ACA,
+SKS, RHO-GE, GPT-LU, HO, NDLT), each with its kernel, in float32 and in
+native float64 (the ``*_fp64`` ops, fp64 RANSAC scoring, kernel K5), the
+rectangle solvers (``aca_rect``) and the SKS / ACA factors; the rest of
+``sks_tpu`` follows slice by slice (see ROADMAP.md).
 """
 
 import os as _os
@@ -35,9 +36,12 @@ from sks_tpu_torch.ops import (  # noqa: E402
     SOLVERS,
     SOLVERS_H,
     aca,
+    aca_factors,
     aca_fp64,
     aca_fp64_h,
     aca_h,
+    aca_rect,
+    aca_rect_h,
     ge_fp64_h,
     gpt_fp64_h,
     gpt_lu,
@@ -50,9 +54,11 @@ from sks_tpu_torch.ops import (  # noqa: E402
     residual2_fp64,
     rho_ge,
     sks,
+    sks_factors,
     sks_fp64,
     sks_fp64_h,
     sks_h,
+    sks_kernel_chain,
     solve_h,
 )
 from sks_tpu_torch.robust.api import (  # noqa: E402
@@ -71,6 +77,8 @@ __all__ = [
     "SOLVERS_H",
     "aca",
     "aca_h",
+    "aca_rect",
+    "aca_rect_h",
     "sks",
     "sks_h",
     "rho_ge",
@@ -80,6 +88,9 @@ __all__ = [
     "ndlt",
     "ndlt_h",
     "solve_h",
+    "aca_factors",
+    "sks_factors",
+    "sks_kernel_chain",
     "aca_fp64_h",
     "aca_fp64",
     "sks_fp64_h",

@@ -9,6 +9,15 @@ the counterparts of ``sks_tpu.ops.df64``.
 
 from sks_tpu_torch.ops.aca import aca, aca_h, aca_valid_mask  # noqa: F401
 from sks_tpu_torch.ops.sks import sks, sks_h, sks_valid_mask  # noqa: F401
+from sks_tpu_torch.ops.aca_rect import (  # noqa: F401
+    aca_qr,
+    aca_qr_h,
+    aca_rect,
+    aca_rect_h,
+    aca_square,
+    aca_square_h,
+    rect_corners,
+)
 from sks_tpu_torch.ops.affine import (  # noqa: F401
     affine_3pt,
     affine_3pt_h,
@@ -18,6 +27,13 @@ from sks_tpu_torch.ops.ndlt import ndlt, ndlt_h  # noqa: F401
 from sks_tpu_torch.ops.ho import ho, ho_h  # noqa: F401
 from sks_tpu_torch.ops.gpt import gpt_lu  # noqa: F401
 from sks_tpu_torch.ops.ge import rho_ge  # noqa: F401
+from sks_tpu_torch.ops.factors import (  # noqa: F401
+    ACAFactors,
+    SKSFactors,
+    aca_factors,
+    sks_factors,
+    sks_kernel_chain,
+)
 from sks_tpu_torch.ops.fp64 import (  # noqa: F401
     FP64_CORES,
     SOLVERS_FP64_H,

@@ -13,5 +13,6 @@ from sks_tpu_torch.robust.ransac import (  # noqa: F401
     ransac_homography_fused,
     ransac_homography_fused_batch,
     sample_minimal_sets,
+    sample_minimal_sets_prosac,
     score_hypotheses,
 )

@@ -9,6 +9,8 @@ CPU tensors.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import Tensor
 
@@ -76,20 +78,31 @@ def find_homography(
       src, tar: (..., N, 2) matched points, N >= 4.  Tensors stay on their
         device; arrays go to the CUDA device (and raise without one).
         Leading batch dims fit one pair after another, each drawing its
-        minimal sets from ``generator`` in turn; on the fused path all
-        pairs are solved and scored in one kernel launch.
+        minimal sets from ``generator`` in turn; on the fixed-batch fused
+        path all pairs are solved and scored in one kernel launch.  With
+        ``confidence`` each pair has its own early exit.
       method: 'ransac' (inlier counting), 'msac', 'magsac', 'lmeds', or
         'fused' (force the fused solve+score path).
       ransac_reproj_threshold: inlier threshold in pixels (symmetric transfer).
-      max_iters: hypothesis budget, all evaluated at once (rounded up to a
-        multiple of 128 on the fused path, as in the JAX package).
+      max_iters: hypothesis budget.  Without ``confidence`` all hypotheses
+        are evaluated at once (rounded up to a multiple of 128 on the fused
+        path, as in the JAX package).  With ``confidence`` it is the
+        worst-case cap of the early-exit loop.
       solver: minimal solver for hypotheses, a name in
         ``sks_tpu_torch.ops.SOLVERS_H``.
       generator: draws the minimal sets (default: seeded 0 on the input's
         device — deterministic).
       refine_iters: IRLS local-optimization rounds on the consensus set.
-      confidence: the early-exit loop; not ported yet (raises).
-      sampling: 'uniform' ('prosac' is not ported yet).
+      confidence: if set (e.g. 0.995, the cv2 default semantic), run the
+        early-exit loop (:func:`ransac_homography_adaptive`): geometrically
+        growing chunks (256 -> 1024 -> 4096 -> ... capped at 2^17) until the
+        termination bound is met or ``max_iters`` total.  The loop reads one
+        flag back from the device before each chunk.  It takes eager chunks
+        by default (on CUDA their batched solve is the solver's kernel);
+        ``method='fused'`` opts in the fused kernel for stages of at least
+        ``ransac.FUSED_ADAPTIVE_MIN_CHUNK`` hypotheses.
+      sampling: 'uniform', or 'prosac' progressive sampling (src/tar must be
+        sorted by descending match quality).  Composes with the fused path.
       point_mask: optional (..., N) bool validity for padded point sets.
       bf16_hypotheses: store minimal sets in bfloat16 on the fused path.
 
@@ -104,22 +117,25 @@ def find_homography(
     if method not in _METHODS:
         raise ValueError(f"method must be one of {_METHODS}, got {method!r}")
     src, tar = _on_device(src, tar)
-    if confidence is not None:
-        # The early-exit loop; raises NotImplementedError until it is ported.
-        ransac_homography_adaptive(src, tar, confidence=confidence)
     if point_mask is not None:
         point_mask = torch.as_tensor(point_mask, device=src.device)
 
     scoring = {"ransac": "inliers", "fused": "inliers"}.get(method, method)
+    # The early-exit loop keeps the JAX package's routing: eager chunks
+    # unless method='fused' opts the kernel in, stage by stage.
     fused = method == "fused" or (
         method in ("ransac", "msac", "magsac")
         and solver == "aca"
+        and confidence is None
         and fused_by_default(src.device.type, src.dtype)
     )
     if method == "fused":
         solver = "aca"
+    chunk = max_iters if confidence is None else min(256, max_iters)
+    if fused:
+        chunk = -(-chunk // 128) * 128
     config = RansacConfig(
-        num_hypotheses=-(-max_iters // 128) * 128 if fused else max_iters,
+        num_hypotheses=chunk,
         threshold=ransac_reproj_threshold,
         solver=solver,
         refine_iters=refine_iters,
@@ -131,21 +147,27 @@ def find_homography(
     if generator is None:
         generator = torch.Generator(device=src.device).manual_seed(0)
 
+    if confidence is None:
+        fit = ransac_homography
+    else:
+        fit = partial(ransac_homography_adaptive, confidence=confidence,
+                      max_chunks=-(-max_iters // chunk))
+
     if src.dim() == 2:
-        res = ransac_homography(generator, src, tar, config, point_mask)
+        res = fit(generator, src, tar, config, point_mask=point_mask)
         return res.h, res.inlier_mask
 
     bshape, n = src.shape[:-2], src.shape[-2]
     srcf = src.reshape(-1, n, 2)
     tarf = tar.reshape(-1, n, 2)
     pmf = None if point_mask is None else point_mask.reshape(-1, n)
-    if fused:
+    if fused and confidence is None:
         results = ransac_homography_fused_batch(generator, srcf, tarf, config,
                                                 pmf)
     else:
         results = [
-            ransac_homography(generator, srcf[i], tarf[i], config,
-                              None if pmf is None else pmf[i])
+            fit(generator, srcf[i], tarf[i], config,
+                point_mask=None if pmf is None else pmf[i])
             for i in range(srcf.shape[0])
         ]
     h = torch.stack([r.h for r in results]).reshape(*bshape, 3, 3)

@@ -8,6 +8,11 @@ and no host synchronisation anywhere on the path (every accept/reject is a
 (collinear samples, duplicate indices, non-finite H) score -1 instead of being
 branched on.
 
+The one exception is :func:`ransac_homography_adaptive`, the confidence
+early-exit loop: how many chunks it evaluates depends on the data, and eager
+PyTorch has no device-side loop, so it reads one boolean back from the device
+before each chunk (:func:`_read_flag`, and nothing else).
+
 On CUDA tensors the fused path (:func:`ransac_homography_fused`) solves and
 scores all B hypotheses in the hand-written kernel
 ``sks_tpu_torch.kernels.aca_cuda.aca_solve_score_soa``; on CPU tensors the
@@ -27,8 +32,10 @@ hold this port against the JAX package on identical minimal sets.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -45,6 +52,8 @@ from sks_tpu_torch.ops.fp64 import residual2_fp64
 from sks_tpu_torch.ops.ndlt import ndlt_h
 
 __all__ = [
+    "ADAPTIVE_MAX_CHUNK",
+    "FUSED_ADAPTIVE_MIN_CHUNK",
     "RansacConfig",
     "RansacResult",
     "fused_kernel_threshold",
@@ -54,6 +63,8 @@ __all__ = [
     "ransac_homography_fused",
     "ransac_homography_fused_batch",
     "sample_minimal_sets",
+    "sample_minimal_sets_prosac",
+    "prosac_prefix_sizes",
     "score_hypotheses",
 ]
 
@@ -62,17 +73,6 @@ __all__ = [
 #: chi^2_4 quantile gives tau(sigma) = k * sigma with k = sqrt(13.2767).
 _MAGSAC_NU = 4.0
 _MAGSAC_K = 3.6437
-
-_ADAPTIVE_LATER = (
-    "the confidence early-exit loop (ransac_homography_adaptive) is not "
-    "ported yet; it comes with PROSAC and the port's own fused-versus-eager "
-    "crossover (ROADMAP.md Queue A, next item)"
-)
-_PROSAC_LATER = (
-    "sampling='prosac' is not ported yet; it comes with "
-    "ransac_homography_adaptive (ROADMAP.md Queue A, next item)"
-)
-
 
 def _scalar(value, like: Tensor) -> Tensor:
     """0-d tensor on ``like``'s device and dtype, made without a host sync."""
@@ -119,9 +119,8 @@ def magsac_weights(r2: Tensor, sigma_max, k: float = _MAGSAC_K) -> Tensor:
 class RansacConfig:
     """Static RANSAC parameters: the fields and defaults of the JAX package's.
 
-    ``sampling='prosac'`` is not ported yet and raises
-    ``NotImplementedError``.  ``df64_scoring`` keeps the JAX package's name;
-    here it scores in native float64.
+    ``df64_scoring`` keeps the JAX package's name; here it scores in native
+    float64.
     """
 
     num_hypotheses: int = 2048
@@ -142,8 +141,9 @@ class RansacConfig:
     # selected model's consensus (robust.polish.anneal_polish).
     final_polish: bool = True
     # Evaluate the hypothesis batch with the fused solve+score kernel.
-    # Requires solver='aca', scoring in {'inliers','msac','magsac'},
-    # num_hypotheses % 128 == 0.
+    # Composes with the adaptive early-exit loop, PROSAC sampling and
+    # point_mask.  Requires solver='aca', scoring in
+    # {'inliers','msac','magsac'}, num_hypotheses % 128 == 0.
     fused: bool = False
     # Store minimal-set coordinates in bfloat16 on the fused path (halves the
     # kernel's input bytes; the kernel computes in float32).
@@ -195,9 +195,87 @@ def _solve_batch(name: str, s4: Tensor, t4: Tensor) -> Tensor:
     return SOLVERS_H[name](s4, t4)
 
 
-def _sample_chunk(generator, n, config, point_mask=None):
+def prosac_prefix_sizes(num_points: int, batch: int, m: int = 4):
+    """PROSAC growth schedule: prefix size n_t for each hypothesis t.
+
+    The Chum & Matas (2005) growth function — how many top-quality
+    correspondences hypothesis t may draw from — computed with the standard
+    recurrence T'_{n+1} = T'_n + ceil(T_{n+1} - T_n),
+    T_{n+1} = T_n (n+1)/(n+1-m).  Data-independent (depends only on
+    ``num_points`` and ``batch``) and computed on the host; a caller puts it
+    on the device once.
+
+    Returns an int32 numpy array (batch,) with m <= n_t <= num_points,
+    non-decreasing.
+    """
+    n_pts = int(num_points)
+    t_n = float(batch)
+    for i in range(m):
+        t_n *= (m - i) / (n_pts - i)  # T_m
+    sizes = np.empty(batch, np.int32)
+    n = m
+    t_prime = 1.0
+    for t in range(batch):
+        if t + 1 > t_prime and n < n_pts:
+            t_next = t_n * (n + 1) / (n + 1 - m)
+            t_prime += math.ceil(t_next - t_n)
+            t_n = t_next
+            n += 1
+        sizes[t] = n
+    return sizes
+
+
+def sample_minimal_sets_prosac(
+    generator: torch.Generator | None,
+    num_points: int,
+    batch: int,
+    sizes: Tensor | None = None,
+    *,
+    u: Tensor | None = None,
+) -> Tensor:
+    """(B, 4) progressive index tuples (PROSAC; Chum & Matas 2005).
+
+    Assumes correspondences are sorted by descending match quality.
+    Hypothesis t draws point n_t - 1 (the newest admitted) plus 3 *distinct*
+    picks from the first n_t - 1 (sequential shifted draws — at the smallest
+    prefix a with-replacement draw would waste ~78% of hypotheses on
+    duplicates).
+
+    ``sizes`` optionally supplies a precomputed growth schedule slice so
+    chunked callers can continue one global schedule instead of restarting it
+    (see :func:`ransac_homography_adaptive`).  ``u`` optionally supplies the
+    (B, 3) uniforms in [0, 1) in place of the generator's draw: given those of
+    ``jax.random.uniform(key, (B, 3))`` the indices are the JAX package's,
+    index for index.
+
+    Padded fixed-shape sets: pad at the *end* (the natural layout for a
+    quality-sorted matcher).  The growth schedule then touches padded slots
+    only in its late uniform tail, where scoring's ``point_mask`` discards
+    them.
+    """
+    if u is None:
+        u = torch.rand((batch, 3), generator=generator,
+                       device=generator.device)
+    if sizes is None:
+        sizes = prosac_prefix_sizes(num_points, batch)
+    sizes = torch.as_tensor(sizes, device=u.device).long()  # (B,)
+    m = (sizes - 1).to(u.dtype)  # companion pool: the top n_t - 1 points
+    i0 = torch.floor(u[:, 0] * m).long()
+    i1 = torch.floor(u[:, 1] * (m - 1.0)).long()
+    i1 = i1 + (i1 >= i0).long()
+    i2 = torch.floor(u[:, 2] * (m - 2.0)).long()
+    lo = torch.minimum(i0, i1)
+    hi = torch.maximum(i0, i1)
+    i2 = i2 + (i2 >= lo).long()
+    i2 = i2 + (i2 >= hi).long()
+    return torch.stack([i0, i1, i2, sizes - 1], dim=-1)
+
+
+def _sample_chunk(generator, n, config, prosac_sizes=None, point_mask=None):
     if config.sampling == "prosac":
-        raise NotImplementedError(_PROSAC_LATER)
+        return sample_minimal_sets_prosac(
+            generator, n, config.num_hypotheses, sizes=prosac_sizes
+        )
     if config.sampling != "uniform":
         raise ValueError(f"unknown sampling {config.sampling!r}")
     if point_mask is None:
@@ -214,13 +292,15 @@ def _sample_chunk(generator, n, config, point_mask=None):
     )
 
 
-def _minimal_sets(generator, src, config, point_mask, indices):
+def _minimal_sets(generator, src, config, point_mask, indices,
+                  prosac_sizes=None):
     """The (B, 4) index tuples of one batch: ``indices`` if given, else drawn."""
     b = config.num_hypotheses
     if indices is None:
         if generator is None:
             generator = torch.Generator(device=src.device).manual_seed(0)
-        idx = _sample_chunk(generator, src.shape[-2], config, point_mask)
+        idx = _sample_chunk(generator, src.shape[-2], config, prosac_sizes,
+                            point_mask)
     else:
         idx = torch.as_tensor(indices)
         if idx.shape != (b, 4) or idx.is_floating_point():
@@ -369,7 +449,8 @@ def _top_k(scores: Tensor, k: int) -> Tensor:
     return torch.sort(scores, descending=True, stable=True).indices[:k]
 
 
-def _fused_draw(generator, src, tar, config, point_mask, indices=None):
+def _fused_draw(generator, src, tar, config, point_mask, indices=None,
+                prosac_sizes=None):
     """Check a fused-path config and draw one pair's batch: the minimal sets
     ``(s4, t4)`` and the fused kernel's ``(src, tar, pts, weights)``."""
     if config.solver != "aca":
@@ -380,7 +461,8 @@ def _fused_draw(generator, src, tar, config, point_mask, indices=None):
     if b % 128:
         raise ValueError("num_hypotheses must be a multiple of 128 on the "
                          f"fused path, as in the JAX package; got {b}")
-    idx = _minimal_sets(generator, src, config, point_mask, indices)
+    idx = _minimal_sets(generator, src, config, point_mask, indices,
+                        prosac_sizes)
     s4 = src[idx]  # (B, 4, 2)
     t4 = tar[idx]
     store = torch.bfloat16 if config.bf16_hypotheses else torch.float32
@@ -413,14 +495,16 @@ def _fused_top(counts, s4, t4, src, tar, config, point_mask):
     return h_top[order], sc_top[order], _take(inl, order[0])
 
 
-def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None):
+def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None,
+                      prosac_sizes=None):
     """Fused-kernel twin of :func:`_eval_chunk` (same contract).
 
     All B hypotheses are solved and scored in one kernel launch; only the
     top-K winning minimal sets are re-solved and re-scored on the eager path.
+    Composes with PROSAC indices, padded point sets and bfloat16 storage.
     """
     (s4, t4), (s_soa, t_soa, pts, pw) = _fused_draw(
-        generator, src, tar, config, point_mask, indices)
+        generator, src, tar, config, point_mask, indices, prosac_sizes)
     counts = aca_solve_score_soa(
         s_soa, t_soa, pts, fused_kernel_threshold(config), point_weights=pw,
         scoring=config.scoring,
@@ -428,12 +512,14 @@ def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None):
     return _fused_top(counts, s4, t4, src, tar, config, point_mask)
 
 
-def _eval_chunk(generator, src, tar, config, point_mask, indices=None):
+def _eval_chunk(generator, src, tar, config, point_mask, indices=None,
+                prosac_sizes=None):
     """Sample + solve + score one fixed-shape batch; return its top-K."""
     if config.fused:
         return _eval_chunk_fused(generator, src, tar, config, point_mask,
-                                 indices)
-    idx = _minimal_sets(generator, src, config, point_mask, indices)
+                                 indices, prosac_sizes)
+    idx = _minimal_sets(generator, src, config, point_mask, indices,
+                        prosac_sizes)
     s4 = src[idx]  # (B, 4, 2)
     t4 = tar[idx]
     h = _solve_batch(config.solver, s4, t4)  # (B, 3, 3), up to scale
@@ -517,11 +603,6 @@ def _refine_and_pack(h_top, sc_top, inl_best, src, tar, config, point_mask):
     )
 
 
-def _check_ported(config: RansacConfig) -> None:
-    if config.sampling == "prosac":
-        raise NotImplementedError(_PROSAC_LATER)
-
-
 def ransac_homography(
     generator: torch.Generator | None,
     src: Tensor,
@@ -551,7 +632,6 @@ def ransac_homography(
     Returns:
       RansacResult with the best model (normalized), its inliers and score.
     """
-    _check_ported(config)
     h_top, sc_top, inl_best = _eval_chunk(generator, src, tar, config,
                                           point_mask, indices)
     return _refine_and_pack(h_top, sc_top, inl_best, src, tar, config,
@@ -591,7 +671,6 @@ def ransac_homography_fused(
     'msac' or 'magsac'; ``config.num_hypotheses`` a multiple of 128.
     Arguments as :func:`ransac_homography`, ``indices=`` included.
     """
-    _check_ported(config)
     h_top, sc_top, inl_best = _eval_chunk_fused(generator, src, tar, config,
                                                 point_mask, indices)
     return _refine_and_pack(h_top, sc_top, inl_best, src, tar, config,
@@ -624,7 +703,6 @@ def ransac_homography_fused_batch(
     Returns:
       One :class:`RansacResult` per pair.
     """
-    _check_ported(config)
     if generator is None and indices is None:
         generator = torch.Generator(device=src.device).manual_seed(0)
     pairs = range(src.shape[0])
@@ -650,6 +728,192 @@ def ransac_homography_fused_batch(
     return results
 
 
-def ransac_homography_adaptive(*args, **kwargs) -> RansacResult:
-    """RANSAC with confidence-based early exit — not ported yet."""
-    raise NotImplementedError(_ADAPTIVE_LATER)
+#: Chunk size of the adaptive loop from which a ``config.fused`` stage runs
+#: the fused kernel (K2, then the eager re-score of its top-K) instead of the
+#: eager chunk (K1, then eager scoring of every hypothesis).  Measured on an
+#: NVIDIA H100 80GB HBM3, 700.00 W, by ``bench/fused_adaptive.py``: host ms
+#: of one chunk to a ``synchronize``, on the schedule's size grid (256 x 4^k
+#: and the cap), at N = 512 and 2,000 points.  The fused chunk costs 3-6 ms
+#: of host at every size (its re-score is ~190 small launches); the eager
+#: chunk 2-3 ms until its (B, N) passes outgrow that.  At N = 2,000 the
+#: fused chunk loses at 4,096 (4.0 against 3.0 ms) and wins from 16,384
+#: (2.8 against 8.3); at N = 512 the two tie at 16,384 (2.9 against 2.8)
+#: and the fused chunk wins from 65,536 (4.1 against 8.7).  The value is the
+#: smallest size from which the fused chunk is no slower at both point
+#: counts (``crossover_chunk``).  That it equals the JAX package's constant
+#: is a coincidence of the two-point-count rule, not a copy: the TPU value
+#: was read at N = 2,000, where this card's crossover is 16,384.  Stages
+#: below the value run eager chunks even with ``config.fused``.
+FUSED_ADAPTIVE_MIN_CHUNK = 65536
+
+#: Default cap on the geometric chunk growth (a distinct quantity from the
+#: fused gate above).  A parameter of the schedule, kept at the JAX package's
+#: value: it decides after which chunk a fit stops, so the two packages stop
+#: alike only with the same cap.
+ADAPTIVE_MAX_CHUNK = 131072
+
+
+def _chunk_schedule(chunk0: int, max_chunks: int, growth: int,
+                    chunks_per_stage: int, max_chunk: int):
+    """[(chunk_size, num_chunks), ...] stages covering chunk0 * max_chunks.
+
+    Geometric growth: ``chunks_per_stage`` chunks at each size, size x
+    ``growth`` between stages, capped at ``max_chunk``; the final stage
+    absorbs the remaining budget at the cap size.
+    """
+    total = chunk0 * max_chunks
+    if growth <= 1 or max_chunks <= 1 or max_chunk <= chunk0:
+        return [(chunk0, max_chunks)]
+    stages = []
+    c, budget = chunk0, 0
+    while budget < total:
+        remaining_chunks = -(-(total - budget) // c)
+        n = remaining_chunks if c >= max_chunk else min(
+            chunks_per_stage, remaining_chunks
+        )
+        stages.append((c, n))
+        budget += c * n
+        c = min(c * growth, max_chunk)
+    return stages
+
+
+def _read_flag(flag: Tensor) -> bool:
+    """Read a 0-d bool tensor on the host: the adaptive loop's one
+    synchronisation with the device, once a chunk."""
+    return bool(flag)
+
+
+def ransac_homography_adaptive(
+    generator: torch.Generator | None,
+    src: Tensor,
+    tar: Tensor,
+    config: RansacConfig = RansacConfig(),
+    confidence: float = 0.99,
+    max_chunks: int = 16,
+    point_mask: Tensor | None = None,
+    growth: int = 4,
+    chunks_per_stage: int = 2,
+    max_chunk: int | None = None,
+    *,
+    indices: Tensor | None = None,
+) -> RansacResult:
+    """RANSAC with confidence-based early exit (cv2 ``confidence`` semantic).
+
+    The fixed-batch :func:`ransac_homography` sizes its budget for the
+    worst-case outlier ratio; on easy problems most of that work is wasted.
+    This variant evaluates hypotheses in fixed-shape chunks and stops once
+    the standard RANSAC termination bound says the hypotheses drawn so far
+    find an all-inlier sample with probability >= ``confidence``:
+
+        k_needed = log(1 - confidence) / log(1 - w^4),   w = inlier ratio.
+
+    The total draw is bounded by the stage schedule built from a budget of
+    ``config.num_hypotheses * max_chunks`` hypotheses: the final stage
+    absorbs the remainder at the grown chunk size, so the worst case rounds
+    that budget UP to a stage boundary (e.g. 1024 x 16 schedules 26,624 —
+    see :func:`_chunk_schedule`).
+
+    Chunk sizes start at ``config.num_hypotheses`` and grow ``growth``x every
+    ``chunks_per_stage`` chunks up to ``max_chunk`` (default
+    ``ADAPTIVE_MAX_CHUNK``); ``growth=1`` gives a flat schedule.  With
+    ``config.fused``, stages of at least ``FUSED_ADAPTIVE_MIN_CHUNK``
+    hypotheses run the fused solve+score kernel and smaller ones the eager
+    chunk.  The running top-K carries across chunks and stages; the
+    champion's inlier ratio drives the bound.
+
+    The JAX package decides its trip counts on the device
+    (``lax.while_loop``).  Here the stop test is read on the host: this is
+    the one entry point of the module that synchronises with the device, one
+    boolean before each chunk through :func:`_read_flag`; everything else
+    (the merge, the champion's mask) stays a ``torch.where``.  Once the bound
+    is met no later stage evaluates a chunk.
+
+    Args:
+      generator, src, tar, config, point_mask: as :func:`ransac_homography`.
+      confidence: the probability the bound must reach, clipped to
+        [0, 1 - 1e-7].
+      max_chunks: budget in chunks of ``config.num_hypotheses``.
+      indices: optional (total_budget, 4) integer minimal sets for the whole
+        schedule (total_budget = the sum of ``size * count`` over
+        :func:`_chunk_schedule`), sliced at the running hypothesis offset as
+        the PROSAC schedule is: the parity seam of the fixed-batch fits.
+
+    Returns:
+      RansacResult of the shared refine-and-polish tail on the merged top-K.
+    """
+    n = src.shape[-2]
+    dtype, device = src.dtype, src.device
+    nf = (torch.sum(point_mask).to(dtype) if point_mask is not None
+          else _scalar(n, src))
+    chunk0 = config.num_hypotheses
+    if max_chunk is None:
+        max_chunk = ADAPTIVE_MAX_CHUNK
+    stages = _chunk_schedule(chunk0, max_chunks, growth, chunks_per_stage,
+                             max_chunk)
+    total_budget = sum(c * k for c, k in stages)
+    conf = torch.clamp(_scalar(confidence, src), 0.0, 1.0 - 1e-7)
+
+    def needed(num_inl):
+        w = num_inl / torch.clamp(nf, min=1.0)
+        w2 = w * w
+        p_good = torch.clamp(w2 * w2, 1e-12, 1.0 - 1e-7)
+        return torch.log1p(-conf) / torch.log1p(-p_good)
+
+    # PROSAC: one global growth schedule over the worst-case budget, sliced
+    # per chunk at the running hypothesis offset — later chunks continue
+    # toward uniform sampling instead of re-drawing the quality-concentrated
+    # head every time.
+    all_sizes = (
+        torch.as_tensor(prosac_prefix_sizes(n, total_budget), device=device)
+        if config.sampling == "prosac" and indices is None
+        else None
+    )
+    if indices is not None:
+        indices = torch.as_tensor(indices)
+        if indices.shape != (total_budget, 4) or indices.is_floating_point():
+            raise ValueError(
+                f"indices must be an integer ({total_budget}, 4) tensor, the "
+                f"whole schedule's draws; got {indices.dtype} "
+                f"{tuple(indices.shape)}"
+            )
+        indices = indices.to(device)
+    if generator is None and indices is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    k_cand = max(1, min(config.lo_candidates, chunk0))
+
+    h_k = torch.full((k_cand, 3, 3), torch.nan, dtype=dtype, device=device)
+    sc_k = torch.full((k_cand,), -torch.inf, dtype=dtype, device=device)
+    inl = torch.zeros(n, dtype=torch.bool, device=device)
+    ninl = _scalar(0.0, src)
+    done = 0  # hypotheses drawn so far
+
+    for c_s in (c for c, k in stages for _ in range(k)):
+        if not _read_flag(_scalar(done, src) < needed(ninl)):
+            break  # bound met: no later stage evaluates a chunk
+        cfg_s = replace(
+            config,
+            num_hypotheses=c_s,
+            fused=config.fused and c_s >= FUSED_ADAPTIVE_MIN_CHUNK,
+        )
+        part = slice(done, done + c_s)
+        h_c, sc_c, inl_c = _eval_chunk(
+            generator, src, tar, cfg_s, point_mask,
+            None if indices is None else indices[part],
+            None if all_sizes is None else all_sizes[part],
+        )
+        # Merge running top-K with this chunk's top-K.
+        sc_all = torch.cat([sc_k, sc_c])
+        h_all = torch.cat([h_k, h_c])
+        idx = _top_k(sc_all, k_cand)
+        better = sc_c[0] > sc_k[0]
+        inl = torch.where(better, inl_c, inl)
+        ninl = torch.where(better, torch.sum(inl_c).to(dtype), ninl)
+        h_k, sc_k = h_all[idx], sc_all[idx]
+        done += c_s
+
+    # All-or-nothing fallback per candidate: a partially-finite model must not
+    # be blended elementwise with the identity.
+    finite = _all_finite(h_k)
+    h_top = torch.where(finite[:, None, None], h_k,
+                        torch.eye(3, dtype=dtype, device=device))
+    return _refine_and_pack(h_top, sc_k, inl, src, tar, config, point_mask)

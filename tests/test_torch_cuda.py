@@ -356,3 +356,196 @@ def test_find_homography_fp64_on_cuda_runs_k5_not_k2(dev):
     assert h.dtype == torch.float64 and h.device == src.device and mask.all()
     torch.testing.assert_close(normalize_h(h, "fro"),
                                normalize_h(h_true, "fro"), atol=2e-3, rtol=0)
+
+
+# --- the confidence early-exit loop, PROSAC, aca_rect and factors ------------
+
+def _contaminated(dev, seed, n, outlier_frac, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    src, tar, h = random_correspondences(g, (), n, 0.5, dtype)
+    out = torch.randperm(n, generator=g, device=dev)[:int(n * outlier_frac)]
+    tar = tar.clone()
+    tar[out] = torch.rand((out.numel(), 2), generator=g, device=dev,
+                          dtype=dtype) * 640.0
+    inl = torch.ones(n, dtype=torch.bool, device=dev)
+    inl[out] = False
+    return src, tar, h, inl
+
+
+def _corner_err(h, h_true):
+    from sks_tpu_torch.geom.homography import apply_homography
+
+    c = torch.tensor([[0.0, 0.0], [640.0, 0.0], [640.0, 480.0], [0.0, 480.0]],
+                     device=h.device, dtype=h.dtype)
+    return (apply_homography(h, c) - apply_homography(h_true.to(h.dtype), c)
+            ).norm(dim=-1).mean().item()
+
+
+@pytest.mark.parametrize("dtype,key", [(torch.float32, "aca_solve"),
+                                       (torch.float64, "fp64_aca")])
+def test_adaptive_fit_on_cuda_solves_its_chunks_in_the_kernel(dev, dtype, key):
+    """Eager chunks of the early-exit loop: one launch of K1 (float64 points:
+    K5-aca) a chunk, no K2, and one host read a chunk and one more."""
+    import sks_tpu_torch
+    from sks_tpu_torch.robust import ransac as R
+
+    src, tar, h_true, inl = _contaminated(dev, 7, 2000, 0.5, dtype)
+    reads = [0]
+    real = R._read_flag
+
+    def read_flag(flag):
+        reads[0] += 1
+        # The loop's one synchronisation: everything around it must not.
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(flag)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    real_tail = R._refine_and_pack
+
+    def tail(*args):
+        # The loop is over: the shared tail is held by the fixed-batch tests.
+        torch.cuda.set_sync_debug_mode("default")
+        return real_tail(*args)
+
+    before = dict(K.LAUNCHES)
+    R._read_flag, R._refine_and_pack = read_flag, tail
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = R.ransac_homography_adaptive(
+            torch.Generator(device=dev).manual_seed(1), src, tar,
+            RansacConfig(num_hypotheses=256, threshold=3.0), 0.999, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        R._read_flag, R._refine_and_pack = real, real_tail
+    torch.cuda.synchronize()
+    chunks = K.LAUNCHES[key] - before[key]
+    assert 1 <= chunks <= 4 and reads[0] == chunks + 1
+    assert K.LAUNCHES["aca_solve_score"] == before["aca_solve_score"]
+    assert res.h.dtype == dtype and _corner_err(res.h, h_true) < 1.0
+    assert (res.inlier_mask == inl).float().mean().item() >= 0.95
+    h, mask = sks_tpu_torch.find_homography(src, tar, confidence=0.999)
+    assert _corner_err(h, h_true) < 1.0
+
+
+def test_adaptive_fused_fit_on_cuda_launches_k2_once_a_fused_chunk(dev):
+    import sks_tpu_torch
+    from sks_tpu_torch.robust import ransac as R
+
+    src, tar, h_true, inl = _contaminated(dev, 8, 2000, 0.9)
+    before = dict(K.LAUNCHES)
+    h, mask = sks_tpu_torch.find_homography(
+        src, tar, method="fused", confidence=0.999, max_iters=1 << 20)
+    torch.cuda.synchronize()
+    k1 = K.LAUNCHES["aca_solve"] - before["aca_solve"]
+    k2 = K.LAUNCHES["aca_solve_score"] - before["aca_solve_score"]
+    sizes = [c for c, n in R._chunk_schedule(256, 4096, 4, 2,
+                                             R.ADAPTIVE_MAX_CHUNK)
+             for _ in range(n)][:k1 + k2]
+    assert k2 >= 1 and k1 + k2 < 18
+    assert k2 == sum(c >= R.FUSED_ADAPTIVE_MIN_CHUNK for c in sizes)
+    assert _corner_err(h, h_true) < 1.0
+    assert (mask == inl).float().mean().item() >= 0.95
+
+
+def test_adaptive_fit_on_cuda_equals_the_cpu_fit_on_the_same_draws(dev):
+    from sks_tpu_torch.robust import ransac as R
+
+    src, tar, _, _ = _contaminated(dev, 9, 1000, 0.6)
+    cfg = RansacConfig(num_hypotheses=256, threshold=3.0)
+    total = sum(c * n for c, n in R._chunk_schedule(256, 16, 4, 2,
+                                                    R.ADAPTIVE_MAX_CHUNK))
+    idx = sample_minimal_sets(torch.Generator(device=dev).manual_seed(2),
+                              1000, total)
+    counts = []
+    real = R._eval_chunk
+
+    def counted(*args, **kwargs):
+        counts[-1] += 1
+        return real(*args, **kwargs)
+
+    R._eval_chunk = counted
+    try:
+        out = []
+        for s, t, i in ((src, tar, idx), (src.cpu(), tar.cpu(), idx.cpu())):
+            counts.append(0)
+            out.append(R.ransac_homography_adaptive(None, s, t, cfg, 0.999,
+                                                    16, indices=i))
+    finally:
+        R._eval_chunk = real
+    assert counts[0] == counts[1] >= 1
+    agree = (out[0].inlier_mask.cpu() == out[1].inlier_mask).float().mean()
+    assert agree.item() >= 0.95
+
+
+@pytest.mark.parametrize("entry", ["general", "fused", "confidence"])
+def test_prosac_fits_on_cuda(dev, entry):
+    import sks_tpu_torch
+
+    # Quality-sorted: the 600 inliers first, 1,400 outliers after them.
+    src, tar, h_true, inl = _contaminated(dev, 10, 2000, 0.7)
+    order = torch.argsort(inl.to(torch.int8), descending=True, stable=True)
+    src, tar, inl = src[order], tar[order], inl[order]
+    kwargs = {"general": dict(solver="sks", max_iters=512),
+              "fused": dict(method="fused", max_iters=512),
+              "confidence": dict(confidence=0.999, max_iters=1 << 16)}[entry]
+    before = K.LAUNCHES["aca_solve_score"]
+    h, mask = sks_tpu_torch.find_homography(src, tar, sampling="prosac",
+                                            **kwargs)
+    torch.cuda.synchronize()
+    assert (K.LAUNCHES["aca_solve_score"] - before == 1) == (entry == "fused")
+    assert _corner_err(h, h_true) < 1.0
+    assert (mask == inl).float().mean().item() >= 0.95
+
+
+def test_batched_adaptive_fit_on_cuda_equals_its_single_fits(dev):
+    import sks_tpu_torch
+
+    pairs = [_contaminated(dev, 20 + i, 2000, f)
+             for i, f in enumerate((0.3, 0.5, 0.7, 0.5))]
+    src = torch.stack([p[0] for p in pairs])
+    tar = torch.stack([p[1] for p in pairs])
+    kwargs = dict(confidence=0.999, max_iters=1 << 16)
+    h, mask = sks_tpu_torch.find_homography(
+        src, tar, generator=torch.Generator(device=dev).manual_seed(4),
+        **kwargs)
+    g = torch.Generator(device=dev).manual_seed(4)
+    for i, p in enumerate(pairs):
+        hi, mi = sks_tpu_torch.find_homography(src[i], tar[i], generator=g,
+                                               **kwargs)
+        assert torch.equal(hi, h[i]) and torch.equal(mi, mask[i])
+        assert _corner_err(hi, p[2]) < 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_aca_rect_family_and_factors_on_cuda(dev, dtype):
+    from sks_tpu_torch import ops
+    from sks_tpu_torch.geom.homography import apply_homography
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    src, tar = random_quad_pairs(g, 4096, dtype)
+    origin = torch.rand((4096, 2), generator=g, device=dev, dtype=dtype) * 50
+    size = 64 + torch.rand((4096, 2), generator=g, device=dev, dtype=dtype) * 192
+    rect = ops.rect_corners(origin, size)
+    square = ops.rect_corners(origin, size[:, :1].expand(-1, 2))
+    unit = ops.rect_corners(torch.zeros_like(origin), torch.ones_like(size))
+    px = 0.01 if dtype == torch.float32 else 1e-8
+    for h, quad in ((ops.aca_rect(tar, origin, size), rect),
+                    (ops.aca_square(tar, origin, size[:, 0]), square),
+                    (ops.aca_qr(tar), unit)):
+        assert h.device == tar.device and h.dtype == dtype
+        err = (apply_homography(h, quad) - tar).norm(dim=-1).amax(-1)
+        assert err.median().item() < px
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for factors, solver in ((ops.sks_factors, ops.sks),
+                            (ops.aca_factors, ops.aca)):
+        f = factors(src, tar)
+        d = (normalize_h(f.reconstruct(), "fro")
+             - normalize_h(solver(src, tar), "fro")).abs().amax((-2, -1))
+        assert d.median().item() < tol
+    chain = ops.sks_kernel_chain(ops.sks_factors(src, tar).params)
+    prod = chain[0] @ chain[1] @ chain[2] @ chain[3]
+    hk = ops.sks_factors(src, tar).h_k
+    assert ((prod - hk).abs().amax((-2, -1))
+            <= 1e-5 * hk.abs().amax((-2, -1))).all()

@@ -362,21 +362,34 @@ def test_array_inputs_without_a_card_raise(entry, monkeypatch):
     assert out.device.type == "cpu"
 
 
-def test_paths_not_ported_yet_raise():
+def test_paths_ported_slice_by_slice_fit():
+    """The paths that earlier slices of the port left raising: the early-exit
+    loop, PROSAC, float64 scoring and the 'sks' solver."""
     src, tar, _, _ = contaminated(10, n=40)
     s, t = T(src), T(tar)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        sks_tpu_torch.find_homography(s, t, confidence=0.99)
-    with pytest.raises(NotImplementedError, match="prosac"):
-        sks_tpu_torch.find_homography(s, t, sampling="prosac")
-    # df64_scoring fits now (native float64 scoring, ops/fp64.py).
+    for kwargs in (dict(confidence=0.99), dict(sampling="prosac"),
+                   dict(confidence=0.99, sampling="prosac", method="fused"),
+                   dict(solver="sks", max_iters=64)):
+        h, mask = sks_tpu_torch.find_homography(s, t, **kwargs)
+        assert h.shape == (3, 3) and torch.isfinite(h).all(), kwargs
+        assert mask.shape == (40,) and int(mask.sum()) >= 4, kwargs
     res = tr.ransac_homography(None, s, t, tr.RansacConfig(
         num_hypotheses=64, df64_scoring=True))
     assert res.h.shape == (3, 3) and torch.isfinite(res.h).all()
     assert res.inlier_mask.shape == (40,) and int(res.num_inliers) >= 4
-    # 'sks' fits now (K3 and ops/sks.py are ported); an unknown name raises.
-    h, mask = sks_tpu_torch.find_homography(s, t, solver="sks", max_iters=64)
-    assert h.shape == (3, 3) and mask.shape == (40,)
+
+
+def test_paths_not_ported_yet_raise():
+    """No path of the JAX package's robust/ is left unported: nothing raises
+    NotImplementedError, and what still raises is a bad argument."""
+    import inspect
+
+    import sks_tpu_torch.robust.api as tapi
+
+    for module in (tr, tapi, tpolish):
+        assert "NotImplementedError" not in inspect.getsource(module)
+    src, tar, _, _ = contaminated(10, n=40)
+    s, t = T(src), T(tar)
     with pytest.raises(KeyError, match="unknown solver"):
         sks_tpu_torch.find_homography(s, t, solver="dlt")
     with pytest.raises(ValueError, match="multiple of 128"):
@@ -384,6 +397,8 @@ def test_paths_not_ported_yet_raise():
     with pytest.raises(ValueError, match="indices"):
         tr.ransac_homography(None, s, t, tr.RansacConfig(num_hypotheses=8),
                              indices=torch.zeros((8, 3), dtype=torch.long))
+    with pytest.raises(ValueError, match="unknown sampling"):
+        sks_tpu_torch.find_homography(s, t, sampling="napsac")
 
 
 # --- the other five solvers on the general path, on JAX's own draw ----------
