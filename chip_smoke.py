@@ -23,6 +23,16 @@ early-exit fit; then the per-chunk fused-versus-eager table behind
 ``FUSED_ADAPTIVE_MIN_CHUNK`` (``sks_tpu_torch/bench/fused_adaptive.py``), and
 the rectangle solvers and the SKS / ACA factorizations on CUDA tensors.
 
+A third path, counters reset again: the planar-VO pipeline on frames
+rendered on the card (``frames_to_poses`` on the fused route, one K2 launch
+for all pairs, and on the general route, K1 once a pair; ``planar_slam``
+with and without the pose graph), its trajectories against the truth and
+against the same fused call on CPU tensors, K2 replayed on the inputs of
+each of its launches against the plain version and timed at the pipeline's
+shape; then its pairs/s in device and host time, with the stage split and
+the device's idle share from one trace of each entry point
+(``sks_tpu_torch/bench/pipeline_fps.py``).
+
 It also times the ablation instances of the NDLT and HO kernels
 (``sks_tpu_torch/bench/ndlt_ablation.py``, ``ho_ablation.py``), holds the
 Jacobi rotation's hand-written square root and reciprocal against the IEEE
@@ -32,7 +42,8 @@ the dominant step of NDLT, HO and GPT.
 
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
-launches on the main path and on the adaptive path, error against its plain version, times and bound
+launches on the main path, the adaptive path and the pipeline, error against
+its plain version, times and bound
 (``sks_tpu_torch/bench/roofline.py``); and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
 exits non-zero without the last line.  Without a CUDA device, or outside the
@@ -241,10 +252,15 @@ def main() -> int:
     # launches of the adaptive path, whose hypothesis counts set grids (and
     # with them orders of the sum) of their own: a PROSAC fit of 512, and
     # fused stages of 16,384 (one grid step under the shipped gate, should
-    # it move), 65,536 (above) and the schedule's cap.
-    def score_problem(n, pairs, b):
+    # it move), 65,536 (above) and the schedule's cap; last, the VO
+    # pipeline's launches: 1,024 hypotheses on 384 match slots, about half
+    # of them empty (weight 0), for the 15 consecutive pairs of a 16-frame
+    # call and the 20 closure pairs of planar_slam (phase k2_pipeline holds
+    # K2 on the pipeline's own inputs too).
+    def score_problem(n, pairs, b, keep=0.9):
         """``pairs`` problems of n matches (half of them junk) with b minimal
-        sets each: src, tar (pairs, 8, b), pts (pairs, 4, n), w (pairs, n)."""
+        sets each, and weights that keep each point with probability
+        ``keep``: src, tar (pairs, 8, b), pts (pairs, 4, n), w (pairs, n)."""
         out = []
         for _ in range(pairs):
             src, tar, _ = random_correspondences(gen, (), n, 0.5)
@@ -255,17 +271,19 @@ def main() -> int:
             out.append((K.to_soa(src[idx]), K.to_soa(tar[idx]),
                         torch.cat([src.T, tar.T]).contiguous(),
                         (torch.rand(n, generator=gen, device=dev)
-                         >= 0.1).float()))
+                         < keep).float()))
         return tuple(torch.stack(x) for x in zip(*out))
 
     b2 = 65536
     k2 = []
     k2_rel = 0.0
-    for b, n, pairs in ((2048, 2000, 1), (b2, 2000, 1), (2048, 1999, 1),
-                        (2048, 20, 1), (2048, 2000, 8), (2048, 1999, 8),
-                        (2048, 20, 8), (512, 2000, 1), (16384, 2000, 1),
-                        (R.ADAPTIVE_MAX_CHUNK, 2000, 1)):
-        s, t, pts, w = score_problem(n, pairs, b)
+    for b, n, pairs, keep in (
+            (2048, 2000, 1, 0.9), (b2, 2000, 1, 0.9), (2048, 1999, 1, 0.9),
+            (2048, 20, 1, 0.9), (2048, 2000, 8, 0.9), (2048, 1999, 8, 0.9),
+            (2048, 20, 8, 0.9), (512, 2000, 1, 0.9), (16384, 2000, 1, 0.9),
+            (R.ADAPTIVE_MAX_CHUNK, 2000, 1, 0.9), (1024, 384, 15, 0.5),
+            (1024, 384, 20, 0.5)):
+        s, t, pts, w = score_problem(n, pairs, b, keep)
         if pairs == 1:  # the two-dimensional call
             s, t, pts, w = s[0], t[0], pts[0], w[0]
         for dt in (torch.float32, torch.bfloat16):
@@ -281,7 +299,8 @@ def main() -> int:
                 maxd = d.max().item()
                 rel = (d / sp.abs().clamp(min=1e-3)).max().item()
                 errors["aca_solve_score"] = max(errors["aca_solve_score"], maxd)
-                case = {"B": b, "N": n, "pairs": pairs, "dtype": str(dt)[6:],
+                case = {"B": b, "N": n, "pairs": pairs, "keep": keep,
+                        "dtype": str(dt)[6:],
                         "scoring": scoring, "grid": K.score_grid(pairs, b, n),
                         "max_abs_diff": maxd, "max_rel_diff": rel,
                         "max_score": sk.max().item(),
@@ -312,6 +331,18 @@ def main() -> int:
     emit("k2_vs_plain", bound="inliers equal; msac, magsac rtol 1e-5 + atol "
          "1e-4 (sum order); same launch twice bit-equal",
          max_rel_diff_soft=k2_rel, cases=k2)
+
+    # K2's bound at a shape: 17 values a hypothesis and 5 a point moved, the
+    # plain version's arithmetic (inlier counting) at the float32 rate.
+    per_hyp, per_pair = roofline.score_ops(K.aca_solve_score_soa_plain,
+                                           "inliers")
+
+    def k2_bound(b, pairs, n=2000):
+        return roofline.bound_ms(
+            4 * pairs * (17 * b + 5 * n),
+            {k: pairs * b * (per_hyp.get(k, 0) + n * per_pair[k])
+             for k in per_pair})
+
 
     # ---- 4b. K3 and the four K4 instances against their plain versions -----
     # Bound: equal, value for value (a NaN where the plain version has one),
@@ -698,6 +729,176 @@ def main() -> int:
           f"the adaptive path must launch K1, K2 and K5: {launches_adaptive}")
     emit("adaptive", **adaptive)
 
+    # ---- 5c. the planar-VO pipeline: frames -> poses ------------------------
+    # Rendered on the card (T = 16 at (240, 320), the JAX package's benchmark
+    # size), at its pipeline_fps configuration: frames_to_poses on the fused
+    # route (one K2 launch for the 15 pairs) and on the general route (K1
+    # once a pair), planar_slam on a closed circuit without and with the pose
+    # graph (K2 once for the consecutive pairs, once for the closures).  ATE
+    # bound: 0.12 x path length + 0.02 (the JAX package's
+    # tests/test_pipeline.py), and smoothing under 0.95 x the raw ATE.
+    from sks_tpu_torch.bench import pipeline_fps
+    from sks_tpu_torch.data.images import planar_sequence
+    from sks_tpu_torch.slam.odometry import closure_candidates
+    from sks_tpu_torch.slam.posegraph import ate_rmse
+
+    def seq_gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    sweep = planar_sequence(seq_gen(16), 16, (240, 320))
+    circuit = planar_sequence(seq_gen(17), 16, (240, 320), loop=True)
+    vo_kw = dict(num_corners=384, num_octaves=2, plane_depth=3.0)
+    slam_kw = dict(vo_kw, strides=(4, 8), esm_iters=0)
+    cfg_fused, cfg_general = pipeline_fps.config(True), pipeline_fps.config(
+        False)
+    vo_runs = {}
+    # Every K2 launch of these runs is recorded with its inputs (the
+    # pipeline's own draws and match masks), to be replayed against the
+    # plain version below; the recording calls the wrapper once, as the
+    # path does.
+    k2_launched, k2_wrapper = [], R.aca_solve_score_soa
+    run_name = [None]
+
+    def k2_recorded(*args, **kwargs):
+        k2_launched.append((run_name[0], args, kwargs))
+        return k2_wrapper(*args, **kwargs)
+
+    def vo_counted(name, seq, fit):
+        before = dict(K.LAUNCHES)
+        run_name[0] = name
+        t0 = time.perf_counter()
+        out = fit()
+        torch.cuda.synchronize()
+        vo_runs[name] = (seq, out, {k: K.LAUNCHES[k] - before[k]
+                                    for k in K.LAUNCHES
+                                    if K.LAUNCHES[k] != before[k]},
+                         (time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    R.aca_solve_score_soa = k2_recorded
+    try:
+        vo_counted("fused", sweep, lambda: sks_tpu_torch.frames_to_poses(
+            seq_gen(5), sweep[0], sweep[2], cfg_fused, **vo_kw))
+        vo_counted("general", sweep, lambda: sks_tpu_torch.frames_to_poses(
+            seq_gen(5), sweep[0], sweep[2], cfg_general, **vo_kw))
+        for smooth in (False, True):
+            vo_counted(f"planar_slam_smooth_{smooth}", circuit,
+                       lambda smooth=smooth: sks_tpu_torch.planar_slam(
+                           seq_gen(6), circuit[0], circuit[2], cfg_fused,
+                           smooth=smooth, **slam_kw))
+    finally:
+        R.aca_solve_score_soa = k2_wrapper
+    launches_pipeline = dict(K.LAUNCHES)
+    # The same fused call on CPU tensors of the port: the same frames and the
+    # same generators (they draw on the card; the draws move to the CPU).
+    out_cpu = sks_tpu_torch.frames_to_poses(
+        seq_gen(5), sweep[0].cpu(), sweep[2].cpu(), cfg_fused, **vo_kw)
+
+    def path_length(poses):
+        return torch.linalg.norm(torch.diff(poses[:, :3, 3], dim=0),
+                                 dim=-1).sum().item()
+
+    pipeline = {"launches": launches_pipeline, "frames": 16,
+                "shape": [240, 320]}
+    closures = len(closure_candidates(16, (4, 8)))
+    for name, ((_, poses_gt, _), out, made, ms) in vo_runs.items():
+        ate = ate_rmse(out["poses"], poses_gt).item()
+        bound = 0.12 * path_length(poses_gt) + 0.02
+        pipeline[name] = {"ate": ate, "ate_bound": bound, "launches": made,
+                          "host_ms": ms,
+                          "num_inliers": out["num_inliers"].tolist()}
+        check(bool(torch.isfinite(out["poses"]).all()) and ate < bound
+              and out["poses"].shape == (16, 4, 4),
+              f"pipeline {name}: {pipeline[name]}")
+    check(vo_runs["fused"][2] == {"aca_solve_score": 1},
+          f"a fused frames_to_poses launches K2 once: {pipeline['fused']}")
+    check(vo_runs["general"][2] == {"aca_solve": 15},
+          f"a general frames_to_poses launches K1 once a pair: "
+          f"{pipeline['general']}")
+    for smooth in (False, True):
+        run_ = vo_runs[f"planar_slam_smooth_{smooth}"]
+        check(run_[2] == {"aca_solve_score": 2}
+              and run_[1]["closure_inliers"].shape == (closures,),
+              f"planar_slam launches K2 for the pairs and the closures: "
+              f"{pipeline[f'planar_slam_smooth_{smooth}']}")
+    ate_raw = pipeline["planar_slam_smooth_False"]["ate"]
+    ate_closed = pipeline["planar_slam_smooth_True"]["ate"]
+    pipeline["smoothed_over_raw_ate"] = ate_closed / ate_raw
+    check(ate_closed < 0.95 * ate_raw,
+          f"the pose graph must cut the raw ATE: {ate_raw} -> {ate_closed}")
+    fused_out = vo_runs["fused"][1]
+    pose_gap = (fused_out["poses"].cpu() - out_cpu["poses"]).abs().max().item()
+    inl_gap = (fused_out["num_inliers"].cpu().long()
+               - out_cpu["num_inliers"].long()).abs().max().item()
+    pipeline["card_vs_cpu"] = {"max_pose_diff": pose_gap, "bound": 5e-3,
+                               "max_num_inliers_diff": inl_gap,
+                               "num_inliers_cpu":
+                                   out_cpu["num_inliers"].tolist()}
+    check(pose_gap <= 5e-3 and inl_gap <= 2,
+          f"frames_to_poses, card vs CPU: {pipeline['card_vs_cpu']}")
+    emit("pipeline", card=smi, **pipeline)
+
+    # ---- 5d. K2 on the pipeline's own launches ------------------------------
+    # Each launch recorded above, replayed on its inputs: the kernel against
+    # its plain version (inliers equal, msac / magsac rtol 1e-5 + atol 1e-4;
+    # the same launch twice bit-equal), and the frames_to_poses launch (15 x
+    # 1,024 x 384) timed beside its plain version and its bound.
+    k2_pipe = []
+    for name, args, kwargs in k2_launched:
+        sk = K.aca_solve_score_soa(*args, **kwargs)
+        again = K.aca_solve_score_soa(*args, **kwargs)
+        sp = K.aca_solve_score_soa_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        pairs, b, n = args[0].shape[0], args[0].shape[-1], args[2].shape[-1]
+        maxd = (sk - sp).abs().max().item()
+        errors["aca_solve_score"] = max(errors["aca_solve_score"], maxd)
+        case = {"run": name, "pairs": pairs, "B": b, "N": n,
+                "scoring": kwargs["scoring"],
+                "weighted_share": kwargs["point_weights"].mean().item(),
+                "grid": K.score_grid(pairs, b, n), "max_abs_diff": maxd,
+                "max_score": sk.max().item(), "equal": torch.equal(sk, sp),
+                "same_twice": torch.equal(sk, again)}
+        k2_pipe.append(case)
+        check(case["same_twice"] and sk.shape == sp.shape,
+              f"K2 on the pipeline's inputs is not reproducible: {case}")
+        if kwargs["scoring"] == "inliers":
+            check(case["equal"], f"K2 inliers differ from plain on the "
+                  f"pipeline's inputs: {case}")
+        else:
+            check(torch.allclose(sk, sp, rtol=1e-5, atol=1e-4),
+                  f"K2 beyond rtol 1e-5 + atol 1e-4 on the pipeline's "
+                  f"inputs: {case}")
+    check([c["run"] for c in k2_pipe] == [
+        "fused", "planar_slam_smooth_False", "planar_slam_smooth_False",
+        "planar_slam_smooth_True", "planar_slam_smooth_True"],
+        f"the pipeline's K2 launches: {[c['run'] for c in k2_pipe]}")
+    _, args, kwargs = k2_launched[0]
+    ms_k, ms_p = paired_ms(
+        lambda: K.aca_solve_score_soa(*args, **kwargs),
+        lambda: K.aca_solve_score_soa_plain(*args, **kwargs))
+    pairs, b, n = args[0].shape[0], args[0].shape[-1], args[2].shape[-1]
+    bound_ms, bound_by = k2_bound(b, pairs, n)
+    k2_pipe_time = {"pairs": pairs, "B": b, "N": n, "ms": ms_k,
+                    "plain_ms": ms_p, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "share_of_bound": bound_ms / ms_k}
+    emit("k2_pipeline", card=smi, bound="inliers equal; msac, magsac rtol "
+         "1e-5 + atol 1e-4; same launch twice bit-equal", cases=k2_pipe,
+         frames_to_poses_launch=k2_pipe_time)
+    # Pairs/s in device and host time, the stage split, launches and the
+    # device's idle share (bench/pipeline_fps.py); its launches are its own.
+    fps = pipeline_fps.run(runs=1)
+    emit("pipeline_fps", **fps)
+    for trace, extra in ((fps["trace"], ()),
+                         (fps["trace_capstone"], ("vo/posegraph",))):
+        want = {"vo/describe", "vo/match", "ransac/draw", "ransac/k2",
+                "ransac/tail", "vo/pose", "vo/chain", *extra}
+        check(set(trace["stages_host_ms"]) == want
+              and trace["busy_ms"] and "ransac/k2" in trace["stages_device_ms"],
+              f"the traced {trace['entry']} call: stages and device time "
+              f"{ {k: trace[k] for k in ('stages_host_ms', 'stages_device_ms', 'busy_ms')} }")
+
     # ---- 6. port consistency: CUDA paths == the general path on the CPU ----
     # Same minimal sets (indices=) on both sides; the same mask, and H within
     # the bound after Frobenius normalization: 1e-4 where the CUDA path works
@@ -970,17 +1171,6 @@ def main() -> int:
             "GB_per_s": nbytes / (ms_k * 1e-3) / 1e9,
             "plain_GB_per_s": nbytes / (ms_p * 1e-3) / 1e9,
         }
-    # K2's bound at a shape: 17 values a hypothesis and 5 a point moved, the
-    # plain version's arithmetic (inlier counting) at the float32 rate.
-    per_hyp, per_pair = roofline.score_ops(K.aca_solve_score_soa_plain,
-                                           "inliers")
-
-    def k2_bound(b, pairs, n=2000):
-        return roofline.bound_ms(
-            4 * pairs * (17 * b + 5 * n),
-            {k: pairs * b * (per_hyp.get(k, 0) + n * per_pair[k])
-             for k in per_pair})
-
     for b, pairs in ((b2, 1), (2048, 1), (2048, 8)):
         s, t, pts, w = score_problem(2000, pairs, b)
         if pairs == 1:
@@ -1088,12 +1278,15 @@ def main() -> int:
          work=work)
     # library_ms: no single PyTorch call computes any of these functions
     # whole (the yardsticks above time a dominant step, not the function).
-    # launches: the main path's; launches_adaptive: the adaptive path's.
-    # Each path was driven with the counts set to 0 just before it.
+    # launches: the main path's; launches_adaptive: the adaptive path's;
+    # launches_pipeline: the VO pipeline's (frames_to_poses fused and
+    # general, planar_slam raw and smoothed).  Each path was driven with the
+    # counts set to 0 just before it.
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name],
          "launches_adaptive": launches_adaptive[name],
+         "launches_pipeline": launches_pipeline[name],
          "max_abs_err": errors[name],
          "ms": timed[name][0], "plain_ms": timed[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

@@ -13,8 +13,11 @@ ACA solve+score kernel, the confidence early-exit loop and PROSAC sampling),
 the batched 4-point solve of all six solvers of the paper's Table 8 (ACA,
 SKS, RHO-GE, GPT-LU, HO, NDLT), each with its kernel, in float32 and in
 native float64 (the ``*_fp64`` ops, fp64 RANSAC scoring, kernel K5), the
-rectangle solvers (``aca_rect``) and the SKS / ACA factors; the rest of
-``sks_tpu`` follows slice by slice (see ROADMAP.md).
+rectangle solvers (``aca_rect``) and the SKS / ACA factors, and the planar
+visual-odometry pipeline from pixels to poses (``frames_to_poses``,
+``planar_slam``: Harris features, descriptors, matching, batched RANSAC with
+one fused-kernel launch for all pairs, pose recovery, chaining and the pose
+graph); the rest of ``sks_tpu`` follows slice by slice (see ROADMAP.md).
 """
 
 import os as _os
@@ -71,6 +74,9 @@ from sks_tpu_torch.geom.homography import (  # noqa: E402
     reprojection_error,
     symmetric_transfer_error,
 )
+from sks_tpu_torch.slam.odometry import vo_trajectory  # noqa: E402
+from sks_tpu_torch.slam.pipeline import frames_to_poses, planar_slam  # noqa: E402
+from sks_tpu_torch.slam.posegraph import ate_rmse, optimize_posegraph  # noqa: E402
 
 __all__ = [
     "SOLVERS",
@@ -106,6 +112,11 @@ __all__ = [
     "apply_homography",
     "reprojection_error",
     "symmetric_transfer_error",
+    "frames_to_poses",
+    "planar_slam",
+    "vo_trajectory",
+    "optimize_posegraph",
+    "ate_rmse",
 ]
 
 __version__ = "0.1.0"

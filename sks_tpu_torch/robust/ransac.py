@@ -33,11 +33,13 @@ hold this port against the JAX package on identical minimal sets.
 from __future__ import annotations
 
 import math
+from collections.abc import Sequence
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 from torch import Tensor
+from torch.profiler import record_function
 
 from sks_tpu_torch.geom.homography import apply_homography, inv_h
 from sks_tpu_torch.kernels import (
@@ -678,7 +680,7 @@ def ransac_homography_fused(
 
 
 def ransac_homography_fused_batch(
-    generator: torch.Generator | None,
+    generator: torch.Generator | Sequence[torch.Generator] | None,
     src: Tensor,
     tar: Tensor,
     config: RansacConfig = RansacConfig(),
@@ -689,13 +691,16 @@ def ransac_homography_fused_batch(
     """:func:`ransac_homography_fused` on P pairs with one kernel launch.
 
     The counterpart of ``jax.vmap`` over pairs around the fused fit.  Every
-    pair's minimal sets are drawn first, pair after pair from the one
-    ``generator`` (nothing else on the path draws from it, so the draws are
-    those of P single fits in turn); one launch of
+    pair's minimal sets are drawn first; one launch of
     ``aca_solve_score_soa`` scores all P x B hypotheses; the top-K re-score
     and the polish then run pair by pair.
 
     Args:
+      generator: one generator, from which the pairs draw in turn (nothing
+        else on the path draws from it, so the draws are those of P single
+        fits in turn); or a sequence of P generators, pair i drawing from
+        the i-th (``utils.streams.pair_generators``: a pair's draws then do
+        not depend on the other pairs of the batch).
       src, tar: (P, N, 2) matched points.
       point_mask: optional (P, N) bool.
       indices: optional (P, B, 4) integer minimal sets in place of the draws.
@@ -703,28 +708,39 @@ def ransac_homography_fused_batch(
     Returns:
       One :class:`RansacResult` per pair.
     """
-    if generator is None and indices is None:
-        generator = torch.Generator(device=src.device).manual_seed(0)
     pairs = range(src.shape[0])
+    if isinstance(generator, Sequence):
+        if len(generator) != len(pairs):
+            raise ValueError(f"{len(generator)} generators for "
+                             f"{len(pairs)} pairs")
+        gens = list(generator)
+    else:
+        if generator is None and indices is None:
+            generator = torch.Generator(device=src.device).manual_seed(0)
+        gens = [generator] * len(pairs)
     masks = [None if point_mask is None else point_mask[i] for i in pairs]
-    draws = [
-        _fused_draw(generator, src[i], tar[i], config, masks[i],
-                    None if indices is None else indices[i])
-        for i in pairs
-    ]
-    if not draws:
-        return []
-    s_soa, t_soa, pts, pw = (torch.stack(x) for x in
-                             zip(*(kernel_in for _, kernel_in in draws)))
-    counts = aca_solve_score_soa(
-        s_soa, t_soa, pts, fused_kernel_threshold(config), point_weights=pw,
-        scoring=config.scoring,
-    )
+    with record_function("ransac/draw"):
+        draws = [
+            _fused_draw(gens[i], src[i], tar[i], config, masks[i],
+                        None if indices is None else indices[i])
+            for i in pairs
+        ]
+        if not draws:
+            return []
+        s_soa, t_soa, pts, pw = (torch.stack(x) for x in
+                                 zip(*(kernel_in for _, kernel_in in draws)))
+    with record_function("ransac/k2"):
+        counts = aca_solve_score_soa(
+            s_soa, t_soa, pts, fused_kernel_threshold(config),
+            point_weights=pw, scoring=config.scoring,
+        )
     results = []
-    for i, ((s4, t4), _) in enumerate(draws):
-        top = _fused_top(counts[i], s4, t4, src[i], tar[i], config, masks[i])
-        results.append(_refine_and_pack(*top, src[i], tar[i], config,
-                                        masks[i]))
+    with record_function("ransac/tail"):
+        for i, ((s4, t4), _) in enumerate(draws):
+            top = _fused_top(counts[i], s4, t4, src[i], tar[i], config,
+                             masks[i])
+            results.append(_refine_and_pack(*top, src[i], tar[i], config,
+                                            masks[i]))
     return results
 
 

@@ -1,9 +1,10 @@
 """Carry state across from the JAX package: configs in, results out.
 
-The robust fit has no learned parameters; what carries across is the
-``RansacConfig`` and the input arrays.  Arrays pass as numpy
-(``torch.as_tensor``); configs pass as plain mappings, e.g.
-``dataclasses.asdict`` of a ``sks_tpu.robust.RansacConfig``.
+The port has no learned parameters; what carries across is the
+``RansacConfig``, the pose graph and the input arrays.  Arrays pass as numpy
+(``torch.as_tensor``); configs and graphs pass as plain mappings, e.g.
+``dataclasses.asdict`` of a ``sks_tpu.robust.RansacConfig`` or of a
+``sks_tpu.slam.PoseGraph``.
 """
 
 from __future__ import annotations
@@ -13,9 +14,12 @@ from collections.abc import Mapping
 
 import numpy as np
 
-from sks_tpu_torch.robust.ransac import RansacConfig, RansacResult
+import torch
 
-__all__ = ["ransac_config_from", "result_to_numpy"]
+from sks_tpu_torch.robust.ransac import RansacConfig, RansacResult
+from sks_tpu_torch.slam.posegraph import PoseGraph
+
+__all__ = ["ransac_config_from", "result_to_numpy", "posegraph_from"]
 
 
 def ransac_config_from(mapping: Mapping) -> RansacConfig:
@@ -37,3 +41,21 @@ def result_to_numpy(res: RansacResult) -> dict[str, np.ndarray]:
         f.name: getattr(res, f.name).detach().cpu().numpy()
         for f in dataclasses.fields(res)
     }
+
+
+def posegraph_from(mapping: Mapping) -> PoseGraph:
+    """The port's ``PoseGraph`` from a mapping of its four fields (poses,
+    edges, meas, weights) as arrays, e.g. ``dataclasses.asdict`` of the JAX
+    package's ``PoseGraph`` with its arrays passed through ``np.asarray``.
+
+    Dtypes are kept (edges become int64 indices), on the CPU.  Raises
+    ``ValueError`` unless the fields are exactly the port's.
+    """
+    known = [f.name for f in dataclasses.fields(PoseGraph)]
+    if sorted(mapping) != sorted(known):
+        raise ValueError(f"a PoseGraph has the fields {known}; got "
+                         f"{sorted(mapping)}")
+    # A copy: arrays of the JAX package come through numpy read-only.
+    out = {k: torch.tensor(np.asarray(mapping[k])) for k in known}
+    out["edges"] = out["edges"].long()
+    return PoseGraph(**out)

@@ -120,9 +120,17 @@ def test_sample_chunk_routes_prosac_and_rejects_unknown_sampling():
 
 # --- the loop on the JAX package's own draws ----------------------------------
 
-def _jax_adaptive(monkeypatch, key, src, tar, jcfg, confidence, max_chunks,
-                  point_mask=None):
-    """The JAX fit and the number of chunks it evaluated."""
+@pytest.fixture(scope="module")
+def jax_fit():
+    """The module's one jit of the JAX adaptive loop, its chunk counter, and
+    the counting ``_eval_chunk`` that tests patch in while they call it.
+
+    The jit is of a new function object: jax keys its traces on the function,
+    so a trace made by the package's own jit (or another module) would count
+    into another counter, or not at all.  Made once for the module, its
+    compiles are shared by the tests whose static configuration and shapes
+    agree; every call resets the one counter that every trace bumps.
+    """
     count = [0]
     real = jr._eval_chunk
 
@@ -130,15 +138,27 @@ def _jax_adaptive(monkeypatch, key, src, tar, jcfg, confidence, max_chunks,
         jax.debug.callback(lambda: count.__setitem__(0, count[0] + 1))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(jr, "_eval_chunk", counted)
-    monkeypatch.setattr(jr, "FUSED_ADAPTIVE_MIN_CHUNK", GATE)
     def fresh(*args, **kwargs):
         return jr.ransac_homography_adaptive.__wrapped__(*args, **kwargs)
 
-    # A jit of a new function object: jax keys its traces on the function,
-    # and a trace made for another test (or by the package's own jit) would
-    # count into that test's counter, or not at all.
-    fit = jax.jit(fresh, static_argnames=("config", "max_chunks"))
+    return (jax.jit(fresh, static_argnames=("config", "max_chunks")), count,
+            counted)
+
+
+@pytest.fixture(scope="module")
+def draw_fns():
+    """Jitted ``_sample_chunk`` per (points, sampling, chunk size), shared by
+    the module's replays."""
+    return {}
+
+
+def _jax_adaptive(monkeypatch, jax_fit, key, src, tar, jcfg, confidence,
+                  max_chunks, point_mask=None):
+    """The JAX fit and the number of chunks it evaluated."""
+    fit, count, counted = jax_fit
+    monkeypatch.setattr(jr, "_eval_chunk", counted)
+    monkeypatch.setattr(jr, "FUSED_ADAPTIVE_MIN_CHUNK", GATE)
+    count[0] = 0
     with pltpu.force_tpu_interpret_mode():
         res = fit(key, src, tar, config=jcfg, confidence=confidence,
                   max_chunks=max_chunks, point_mask=point_mask)
@@ -147,7 +167,7 @@ def _jax_adaptive(monkeypatch, key, src, tar, jcfg, confidence, max_chunks,
     return res, count[0]
 
 
-def _replay_draws(key, n, jcfg, max_chunks, point_mask=None):
+def _replay_draws(draw_fns, key, n, jcfg, max_chunks, point_mask=None):
     """(total_budget, 4): the minimal sets of every chunk of the schedule, as
     the JAX loop draws them (one key split a chunk, PROSAC on one global
     schedule sliced at the running offset)."""
@@ -159,13 +179,18 @@ def _replay_draws(key, n, jcfg, max_chunks, point_mask=None):
     pm = None if point_mask is None else jnp.asarray(point_mask)
     out, done, k = [], 0, key
     for c_s, n_s in stages:
-        cfg_s = dataclasses.replace(jcfg, num_hypotheses=c_s)
-        draw = jax.jit(lambda sub, sizes, cfg_s=cfg_s: jr._sample_chunk(
-            sub, n, cfg_s, sizes, pm))
+        # _sample_chunk reads only the sampling and the chunk size.
+        draw_key = (n, jcfg.sampling, c_s)
+        if draw_key not in draw_fns:
+            cfg_s = jr.RansacConfig(num_hypotheses=c_s,
+                                    sampling=jcfg.sampling)
+            draw_fns[draw_key] = jax.jit(
+                lambda sub, sizes, mask, cfg_s=cfg_s: jr._sample_chunk(
+                    sub, n, cfg_s, sizes, mask))
         for _ in range(n_s):
             k, sub = jax.random.split(k)
             sizes = None if all_sizes is None else all_sizes[done:done + c_s]
-            out.append(np.asarray(draw(sub, sizes)))
+            out.append(np.asarray(draw_fns[draw_key](sub, sizes, pm)))
             done += c_s
     return np.concatenate(out), [c for c, k in stages for _ in range(k)]
 
@@ -242,7 +267,8 @@ def _problem(sampling, masked, outlier_frac, seed=21):
                          [("uniform", False, 0.5), ("uniform", True, 0.5),
                           ("prosac", False, 0.65)],
                          ids=["uniform", "masked", "prosac"])
-def test_adaptive_matches_jax_on_replayed_draws(monkeypatch, sampling, masked,
+def test_adaptive_matches_jax_on_replayed_draws(monkeypatch, jax_fit,
+                                                draw_fns, sampling, masked,
                                                 outlier_frac, fused):
     """Confidence 0.999 and a budget of five chunks: the loop leaves its
     first stage and stops inside the schedule, after the third chunk.
@@ -252,10 +278,10 @@ def test_adaptive_matches_jax_on_replayed_draws(monkeypatch, sampling, masked,
     key = jax.random.PRNGKey(4)
     jcfg = jr.RansacConfig(num_hypotheses=CHUNK, threshold=4.0, fused=fused,
                            sampling=sampling)
-    idx, scheduled = _replay_draws(key, N, jcfg, 16, pm)
+    idx, scheduled = _replay_draws(draw_fns, key, N, jcfg, 16, pm)
     assert scheduled == [128, 128, 512, 512, 2048]
-    res_j, chunks_j = _jax_adaptive(monkeypatch, key, src, tar, jcfg, 0.999,
-                                    16, pm)
+    res_j, chunks_j = _jax_adaptive(monkeypatch, jax_fit, key, src, tar,
+                                    jcfg, 0.999, 16, pm)
     res_t, chunks, reads = _port_adaptive(monkeypatch, src, tar, jcfg, 0.999,
                                           16, idx, pm)
     assert len(chunks) == chunks_j
@@ -271,13 +297,14 @@ def test_adaptive_matches_jax_on_replayed_draws(monkeypatch, sampling, masked,
         assert not to_np(res_t.inlier_mask)[~pm].any()
 
 
-def test_adaptive_exits_in_the_first_chunk(monkeypatch):
+def test_adaptive_exits_in_the_first_chunk(monkeypatch, jax_fit, draw_fns):
     """40% outliers at confidence 0.99 need ~33 draws: one chunk of 128."""
     src, tar, _, inl, _ = _problem("uniform", False, 0.4, seed=22)
     key = jax.random.PRNGKey(5)
     jcfg = jr.RansacConfig(num_hypotheses=CHUNK, threshold=4.0)
-    idx, scheduled = _replay_draws(key, N, jcfg, 16)
-    res_j, chunks_j = _jax_adaptive(monkeypatch, key, src, tar, jcfg, 0.99, 16)
+    idx, scheduled = _replay_draws(draw_fns, key, N, jcfg, 16)
+    res_j, chunks_j = _jax_adaptive(monkeypatch, jax_fit, key, src, tar,
+                                    jcfg, 0.99, 16)
     res_t, chunks, reads = _port_adaptive(monkeypatch, src, tar, jcfg, 0.99,
                                           16, idx)
     assert chunks_j == len(chunks) == 1 and reads == 2
@@ -293,15 +320,16 @@ def test_adaptive_exits_in_the_first_chunk(monkeypatch):
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["general", "fused"])
-def test_adaptive_exhausts_its_budget(monkeypatch, fused):
+def test_adaptive_exhausts_its_budget(monkeypatch, jax_fit, draw_fns, fused):
     """70% outliers at confidence 0.999 need ~850 draws; a budget of four
     chunks schedules 768, so the budget ends the loop: no read says stop."""
     src, tar, _, inl, _ = _problem("uniform", False, 0.7, seed=23)
     key = jax.random.PRNGKey(6)
     jcfg = jr.RansacConfig(num_hypotheses=CHUNK, threshold=4.0, fused=fused)
-    idx, scheduled = _replay_draws(key, N, jcfg, 4)
+    idx, scheduled = _replay_draws(draw_fns, key, N, jcfg, 4)
     assert scheduled == [128, 128, 512]
-    res_j, chunks_j = _jax_adaptive(monkeypatch, key, src, tar, jcfg, 0.999, 4)
+    res_j, chunks_j = _jax_adaptive(monkeypatch, jax_fit, key, src, tar,
+                                    jcfg, 0.999, 4)
     res_t, chunks, reads = _port_adaptive(monkeypatch, src, tar, jcfg, 0.999,
                                           4, idx)
     assert chunks_j == len(chunks) == 3 and reads == 3
@@ -311,15 +339,17 @@ def test_adaptive_exhausts_its_budget(monkeypatch, fused):
     assert np.mean(to_np(res_t.inlier_mask) == inl) >= 0.95
 
 
-def test_adaptive_with_confidence_zero_falls_back_to_the_identity(monkeypatch):
+def test_adaptive_with_confidence_zero_falls_back_to_the_identity(
+        monkeypatch, jax_fit, draw_fns):
     """Confidence 0 needs 0 draws: no chunk runs, the running top-K is still
     NaN, and every candidate falls back to the identity, whole."""
     src, tar, _, _, _ = _problem("uniform", False, 0.4)
     key = jax.random.PRNGKey(7)
     jcfg = jr.RansacConfig(num_hypotheses=CHUNK, threshold=4.0,
                            refine_iters=0, final_polish=False)
-    idx, _ = _replay_draws(key, N, jcfg, 4)
-    res_j, chunks_j = _jax_adaptive(monkeypatch, key, src, tar, jcfg, 0.0, 4)
+    idx, _ = _replay_draws(draw_fns, key, N, jcfg, 4)
+    res_j, chunks_j = _jax_adaptive(monkeypatch, jax_fit, key, src, tar,
+                                    jcfg, 0.0, 4)
     res_t, chunks, reads = _port_adaptive(monkeypatch, src, tar, jcfg, 0.0, 4,
                                           idx)
     assert chunks_j == 0 and chunks == [] and reads == 1

@@ -10,7 +10,9 @@ Sizes are the main path's: K1, K3 and the K4 instances at B = 2^18, a
 ragged B and B = 1 (K4-NDLT also at 2^20); K2 at B = 8192 minimal sets
 against N = 2,047 points, and at 2,048 and 65,536 against 2,000, 1,999 and 20
 points with one pair and a pair axis of 8; the six K5 kinds at B = 2^20 and
-1,000, from float32 and float64 storage.
+1,000, from float32 and float64 storage.  The VO pipeline at the JAX
+package's benchmark configuration on 6 frames rendered at (240, 320): one K2
+launch a fused batch, the card against the CPU, and no host sync.
 """
 
 import pytest
@@ -549,3 +551,93 @@ def test_aca_rect_family_and_factors_on_cuda(dev, dtype):
     hk = ops.sks_factors(src, tar).h_k
     assert ((prod - hk).abs().amax((-2, -1))
             <= 1e-5 * hk.abs().amax((-2, -1))).all()
+
+
+# ---- the planar-VO pipeline on the card --------------------------------------
+# T = 6 frames rendered on the card at (240, 320), 384 corners, the JAX
+# package's benchmark RANSAC configuration.
+
+@pytest.fixture(scope="module")
+def vo_sequence():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sks_tpu_torch.data.images import planar_sequence
+
+    dev = torch.device("cuda", 0)
+    return planar_sequence(torch.Generator(device=dev).manual_seed(21), 6,
+                           (240, 320), loop=True)
+
+
+def _vo_config(fused):
+    return RansacConfig(num_hypotheses=1024, threshold=2.0, refine_iters=2,
+                        fused=fused)
+
+
+def test_pipeline_on_cuda_matches_the_port_on_the_cpu(vo_sequence):
+    """The same fused call on CPU tensors, with the same generators (they
+    draw on the card): poses within 5e-3, inlier counts within 2."""
+    import sks_tpu_torch
+
+    frames, _, k_mat = vo_sequence
+    dev = frames.device
+    kw = dict(num_corners=384, num_octaves=2, plane_depth=3.0)
+    out_g = sks_tpu_torch.frames_to_poses(
+        torch.Generator(device=dev).manual_seed(3), frames, k_mat,
+        _vo_config(True), **kw)
+    out_c = sks_tpu_torch.frames_to_poses(
+        torch.Generator(device=dev).manual_seed(3), frames.cpu(),
+        k_mat.cpu(), _vo_config(True), **kw)
+    assert out_g["poses"].device == dev and out_c["poses"].device.type == "cpu"
+    assert (out_g["poses"].cpu() - out_c["poses"]).abs().max().item() <= 5e-3
+    gap = (out_g["num_inliers"].cpu().long() - out_c["num_inliers"].long())
+    assert gap.abs().max().item() <= 2
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_vo_trajectory_launches_k2_once_for_all_pairs(vo_sequence, fused):
+    """Fused route: one K2 launch for every pair of a batch (planar_slam: one
+    for the consecutive pairs, one for the closures); general route: K1 once
+    a pair, no K2."""
+    import sks_tpu_torch
+
+    frames, _, k_mat = vo_sequence
+    kw = dict(num_corners=384, num_octaves=2, plane_depth=3.0)
+    before = dict(K.LAUNCHES)
+    out = sks_tpu_torch.frames_to_poses(7, frames, k_mat, _vo_config(fused),
+                                        **kw)
+    torch.cuda.synchronize()
+    made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+    expect = ({"aca_solve_score": 1, "aca_solve": 0} if fused
+              else {"aca_solve_score": 0, "aca_solve": 5})
+    assert {k: made[k] for k in expect} == expect
+    assert torch.isfinite(out["poses"]).all()
+    before = dict(K.LAUNCHES)
+    out = sks_tpu_torch.planar_slam(7, frames, k_mat, _vo_config(fused),
+                                    strides=(2,), esm_iters=0, **kw)
+    torch.cuda.synchronize()
+    k2 = K.LAUNCHES["aca_solve_score"] - before["aca_solve_score"]
+    k1 = K.LAUNCHES["aca_solve"] - before["aca_solve"]
+    assert (k2, k1) == ((2, 0) if fused else (0, 5 + 4))
+    assert out["closure_inliers"].shape == (4,)
+
+
+def test_frames_to_poses_makes_no_host_sync(vo_sequence):
+    """From pixels to poses nothing is read back to the host: the whole
+    call runs under ``set_sync_debug_mode("error")`` (after a warm-up that
+    builds the kernels)."""
+    import sks_tpu_torch
+
+    frames, _, k_mat = vo_sequence
+    kw = dict(num_corners=384, num_octaves=2, plane_depth=3.0)
+    sks_tpu_torch.frames_to_poses(1, frames, k_mat, _vo_config(True), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sks_tpu_torch.frames_to_poses(1, frames, k_mat,
+                                            _vo_config(True), **kw)
+        slam = sks_tpu_torch.planar_slam(1, frames, k_mat, _vo_config(True),
+                                         strides=(2,), esm_iters=0, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(out["poses"]).all()
+    assert torch.isfinite(slam["poses"]).all()
