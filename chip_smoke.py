@@ -747,6 +747,7 @@ def main() -> int:
 
     sweep = planar_sequence(seq_gen(16), 16, (240, 320))
     circuit = planar_sequence(seq_gen(17), 16, (240, 320), loop=True)
+    sweep_vga = planar_sequence(seq_gen(18), 16, (480, 640))
     vo_kw = dict(num_corners=384, num_octaves=2, plane_depth=3.0)
     slam_kw = dict(vo_kw, strides=(4, 8), esm_iters=0)
     cfg_fused, cfg_general = pipeline_fps.config(True), pipeline_fps.config(
@@ -788,6 +789,16 @@ def main() -> int:
                        lambda smooth=smooth: sks_tpu_torch.planar_slam(
                            seq_gen(6), circuit[0], circuit[2], cfg_fused,
                            smooth=smooth, **slam_kw))
+        # The dense ESM polish on every pair: planar_slam's default
+        # (esm_iters=8) on the same circuit, and frames_to_poses at VGA.
+        vo_counted("planar_slam_esm", circuit,
+                   lambda: sks_tpu_torch.planar_slam(
+                       seq_gen(6), circuit[0], circuit[2], cfg_fused,
+                       strides=(4, 8), **vo_kw))
+        vo_counted("fused_esm_vga", sweep_vga,
+                   lambda: sks_tpu_torch.frames_to_poses(
+                       seq_gen(5), sweep_vga[0], sweep_vga[2], cfg_fused,
+                       esm_iters=8, **vo_kw))
     finally:
         R.aca_solve_score_soa = k2_wrapper
     launches_pipeline = dict(K.LAUNCHES)
@@ -803,10 +814,11 @@ def main() -> int:
     pipeline = {"launches": launches_pipeline, "frames": 16,
                 "shape": [240, 320]}
     closures = len(closure_candidates(16, (4, 8)))
-    for name, ((_, poses_gt, _), out, made, ms) in vo_runs.items():
+    for name, ((frames_, poses_gt, _), out, made, ms) in vo_runs.items():
         ate = ate_rmse(out["poses"], poses_gt).item()
         bound = 0.12 * path_length(poses_gt) + 0.02
-        pipeline[name] = {"ate": ate, "ate_bound": bound, "launches": made,
+        pipeline[name] = {"shape": list(frames_.shape[-2:]), "ate": ate,
+                          "ate_bound": bound, "launches": made,
                           "host_ms": ms,
                           "num_inliers": out["num_inliers"].tolist()}
         check(bool(torch.isfinite(out["poses"]).all()) and ate < bound
@@ -817,17 +829,28 @@ def main() -> int:
     check(vo_runs["general"][2] == {"aca_solve": 15},
           f"a general frames_to_poses launches K1 once a pair: "
           f"{pipeline['general']}")
-    for smooth in (False, True):
-        run_ = vo_runs[f"planar_slam_smooth_{smooth}"]
+    check(vo_runs["fused_esm_vga"][2] == {"aca_solve_score": 1},
+          f"frames_to_poses(esm_iters=8) launches K2 once: "
+          f"{pipeline['fused_esm_vga']}")
+    for name in ("planar_slam_smooth_False", "planar_slam_smooth_True",
+                 "planar_slam_esm"):
+        run_ = vo_runs[name]
         check(run_[2] == {"aca_solve_score": 2}
               and run_[1]["closure_inliers"].shape == (closures,),
               f"planar_slam launches K2 for the pairs and the closures: "
-              f"{pipeline[f'planar_slam_smooth_{smooth}']}")
+              f"{pipeline[name]}")
     ate_raw = pipeline["planar_slam_smooth_False"]["ate"]
     ate_closed = pipeline["planar_slam_smooth_True"]["ate"]
     pipeline["smoothed_over_raw_ate"] = ate_closed / ate_raw
     check(ate_closed < 0.95 * ate_raw,
           f"the pose graph must cut the raw ATE: {ate_raw} -> {ate_closed}")
+    # The JAX package's claim (tests/test_pipeline.py): planar_slam's
+    # default ESM polish beats the same call without it.
+    ate_esm = pipeline["planar_slam_esm"]["ate"]
+    pipeline["esm_over_no_esm_ate"] = ate_esm / ate_closed
+    check(ate_esm < ate_closed,
+          f"planar_slam(esm_iters=8) must beat esm_iters=0: {ate_closed} -> "
+          f"{ate_esm}")
     fused_out = vo_runs["fused"][1]
     pose_gap = (fused_out["poses"].cpu() - out_cpu["poses"]).abs().max().item()
     inl_gap = (fused_out["num_inliers"].cpu().long()
@@ -872,7 +895,8 @@ def main() -> int:
                   f"inputs: {case}")
     check([c["run"] for c in k2_pipe] == [
         "fused", "planar_slam_smooth_False", "planar_slam_smooth_False",
-        "planar_slam_smooth_True", "planar_slam_smooth_True"],
+        "planar_slam_smooth_True", "planar_slam_smooth_True",
+        "planar_slam_esm", "planar_slam_esm", "fused_esm_vga"],
         f"the pipeline's K2 launches: {[c['run'] for c in k2_pipe]}")
     _, args, kwargs = k2_launched[0]
     ms_k, ms_p = paired_ms(
@@ -886,6 +910,159 @@ def main() -> int:
     emit("k2_pipeline", card=smi, bound="inliers equal; msac, magsac rtol "
          "1e-5 + atol 1e-4; same launch twice bit-equal", cases=k2_pipe,
          frames_to_poses_launch=k2_pipe_time)
+    # ---- 5e. the dense ESM polish, batched over the pairs of a sequence -----
+    # esm_polish_pair_symmetric, the polish fit_pair runs (its default caps:
+    # 8 coarse and 2 fine iterations, both directions), on the 15
+    # consecutive pairs of a 16-frame sequence at (240, 320) and (480, 640)
+    # in one call, from the true homographies displaced by up to 1.5 px.
+    # Bounds: each pair of the batch against the same call for that pair
+    # alone, and the card against the port on the CPU on the same inputs,
+    # within 0.01 px at the template's corners (float32 sums over up to
+    # 272,384 template pixels in another order); no host read inside the
+    # polish (the timed call runs under set_sync_debug_mode("error")); the
+    # corner error against the truth lower after than before.  The warm-up
+    # call counts the aten ops the polish dispatches to the card (each
+    # launches one kernel or a few).
+    from sks_tpu_torch.bench import esm_bench
+    from sks_tpu_torch.slam.tracking import esm_polish_pair_symmetric
+
+    def pair_truth(poses, k_seq):
+        """True homographies frame i -> i+1 of the plane z = 3 of frame 0,
+        from the cam->world poses (T, 4, 4)."""
+        w2c = torch.linalg.inv(poses)
+        rel = w2c[1:] @ poses[:-1]  # cam_i -> cam_{i+1}
+        n_i = w2c[:-1, :3, 2]  # R_i^T (0, 0, 1)
+        d_i = 3.0 + (n_i * w2c[:-1, :3, 3]).sum(-1)
+        core = rel[:, :3, :3] + rel[:, :3, 3:4] * n_i[:, None, :] / d_i[
+            :, None, None]
+        return k_seq @ core @ torch.linalg.inv(k_seq)
+
+    def corner_gap(a, b, shape, border=16):
+        """(P,) largest displacement (px) of the template's corners."""
+        hh, ww = shape
+        c = torch.tensor([[border, border], [ww - border, border],
+                          [border, hh - border], [ww - border, hh - border]],
+                         dtype=torch.float64, device=a.device)
+        d = apply_homography(a.double(), c) - apply_homography(
+            b.to(a.device).double(), c)
+        return d.norm(dim=-1).amax(-1)
+
+    esm = {}
+    for frames_, poses_gt, k_seq in (sweep, sweep_vga):
+        shape = tuple(frames_.shape[-2:])
+        h_true = pair_truth(poses_gt, k_seq)
+        shift = torch.eye(3, device=dev).repeat(15, 1, 1)
+        shift[:, :2, 2] = 3.0 * torch.rand((15, 2), generator=gen,
+                                           device=dev) - 1.5
+        h0 = h_true @ shift
+        f1, f2 = frames_[:-1], frames_[1:]
+        _, ops = esm_bench.dispatched_ops(
+            lambda: esm_polish_pair_symmetric(f1, f2, h0))
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ev0.record()
+            h_b, rms_b = esm_polish_pair_symmetric(f1, f2, h0)
+            ev1.record()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        single = torch.stack([esm_polish_pair_symmetric(f1[i], f2[i],
+                                                        h0[i])[0]
+                              for i in range(15)])
+        h_cpu, _ = esm_polish_pair_symmetric(f1.cpu(), f2.cpu(), h0.cpu())
+        before = corner_gap(h0, h_true, shape)
+        after = corner_gap(h_b, h_true, shape)
+        row = {"pairs": 15, "shape": list(shape), "iters": [8, 2],
+               "device_ms": ev0.elapsed_time(ev1), "host_ms": host_ms,
+               "aten_ops": sum(ops.values()),
+               "corner_err_before_px": {"max": before.max().item(),
+                                        "mean": before.mean().item()},
+               "corner_err_after_px": {"max": after.max().item(),
+                                       "mean": after.mean().item()},
+               "batch_vs_single_px": corner_gap(h_b, single,
+                                                shape).max().item(),
+               "card_vs_cpu_px": corner_gap(h_b, h_cpu, shape).max().item(),
+               "bound_px": 0.01, "rms": rms_b.tolist()}
+        esm[f"{shape[0]}x{shape[1]}"] = row
+        check(row["batch_vs_single_px"] <= 0.01
+              and row["card_vs_cpu_px"] <= 0.01
+              and bool(torch.isfinite(h_b).all())
+              and row["corner_err_after_px"]["max"]
+              < row["corner_err_before_px"]["max"],
+              f"esm polish at {shape}: {row}")
+    emit("esm", card=smi, **esm)
+    # The reference's ESM benchmark (bench/esm_bench.py): 64 templates of
+    # 64 x 64 in 128 x 128 images, 10 iterations, gather sampling.
+    esm_row = esm_bench.run()
+    check(esm_row["median_translation_err_px"] < 0.01,
+          f"esm_bench did not track: {esm_row}")
+    emit("esm_bench", **esm_row)
+
+    # ---- 5f. bundle adjustment at full width --------------------------------
+    # synth_ba_problem's width (20 cameras, 10,240 landmarks, 80% seen,
+    # 0.5 px of noise) through run_ba, 8 Gauss-Newton steps at damping 1e-4
+    # (the JAX package's bench/ba_scale.py), after one warm-up step that also
+    # counts the aten ops a step dispatches; in float64, then in float32
+    # (the default).  Held, in float64: the final RMS reprojection within 20%
+    # of the noise (the optimum leaves 0.5 x sqrt(1 - unknowns /
+    # observations) ~ 0.475 px), and the same run on the CPU within 1e-6
+    # relative in RMS and 1e-6 in the camera rotations.  float32 is reported,
+    # not held: with camera 0 gauged by a 1e12 diagonal, the reference's
+    # float32 Schur reduction loses the translation directions (a first
+    # step's translations are half noise: ROADMAP.md Queue C), so whether a
+    # float32 run converges depends on its rounding, on the card as on the
+    # CPU.
+    from sks_tpu_torch.slam.ba import (
+        gauss_newton_step,
+        rms_reprojection,
+        run_ba,
+        synth_ba_problem,
+    )
+
+    ba = {"cams": 20, "points": 10_240, "iters": 8, "damping": 1e-4,
+          "noise_px": 0.5}
+    for dt in (torch.float64, torch.float32):
+        _, init_ba = synth_ba_problem(
+            torch.Generator(device=dev).manual_seed(0), dtype=dt)
+        _, ops = esm_bench.dispatched_ops(
+            lambda: gauss_newton_step(init_ba, 1e-4))
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        done_ba = run_ba(init_ba, iters=8, damping=1e-4)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        init_cpu = type(init_ba)(*(x.cpu() for x in (
+            init_ba.poses, init_ba.points, init_ba.intrinsics, init_ba.obs,
+            init_ba.mask)))
+        done_cpu = run_ba(init_cpu, iters=8, damping=1e-4)
+        ba[str(dt)[6:]] = {
+            "observations": int(init_ba.mask.sum().item()),
+            "device_ms_per_step": ev0.elapsed_time(ev1) / 8,
+            "host_ms_per_step": host_ms / 8,
+            "aten_ops_per_step": sum(ops.values()),
+            "rms_before_px": rms_reprojection(init_ba).item(),
+            "rms_after_px": rms_reprojection(done_ba).item(),
+            "rms_after_cpu_px": rms_reprojection(done_cpu).item(),
+            "rotation_card_vs_cpu": (done_ba.poses[:, :3, :3].cpu()
+                                     - done_cpu.poses[:, :3, :3]).abs()
+            .max().item()}
+    f64 = ba["float64"]
+    check(0.8 * 0.5 < f64["rms_after_px"] < 1.2 * 0.5
+          and f64["rms_before_px"] > 5.0
+          and abs(f64["rms_after_px"] - f64["rms_after_cpu_px"])
+          <= 1e-6 * f64["rms_after_cpu_px"]
+          and f64["rotation_card_vs_cpu"] <= 1e-6, f"ba: {ba}")
+    emit("ba", card=smi, **ba)
+
     # Pairs/s in device and host time, the stage split, launches and the
     # device's idle share (bench/pipeline_fps.py); its launches are its own.
     fps = pipeline_fps.run(runs=1)

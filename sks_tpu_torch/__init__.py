@@ -16,8 +16,10 @@ native float64 (the ``*_fp64`` ops, fp64 RANSAC scoring, kernel K5), the
 rectangle solvers (``aca_rect``) and the SKS / ACA factors, and the planar
 visual-odometry pipeline from pixels to poses (``frames_to_poses``,
 ``planar_slam``: Harris features, descriptors, matching, batched RANSAC with
-one fused-kernel launch for all pairs, pose recovery, chaining and the pose
-graph); the rest of ``sks_tpu`` follows slice by slice (see ROADMAP.md).
+one fused-kernel launch for all pairs, the dense ESM polish of every pair,
+pose recovery, chaining and the pose graph), with bundle adjustment and
+checkpoints (``slam.ba``, ``slam.checkpoint``); the rest of ``sks_tpu``
+follows slice by slice (see ROADMAP.md).
 """
 
 import os as _os

@@ -5,9 +5,11 @@ out, on a rendered sequence (``data.images.planar_sequence``, seed 0) at the
 JAX package's benchmark configuration: T = 16 frames, 384 corners, 2
 octaves, ``RansacConfig(num_hypotheses=1024, threshold=2.0,
 refine_iters=2)`` on the fused route (one K2 launch for all T-1 pairs),
-plane depth 3.  Rows: (240, 320), (480, 640) (the reference's ``vga`` row)
-and the ``planar_slam`` capstone (closures at strides 4 and 8, pose graph,
-``esm_iters=0``) at (240, 320).
+plane depth 3.  Rows: (240, 320), (480, 640) (the reference's ``vga`` row),
+the ``planar_slam`` capstone (closures at strides 4 and 8, pose graph) at
+(240, 320) with ``esm_iters=0``, and the same capstone with its default
+``esm_iters=8`` (the reference's ``capstone_esm_default`` row: the guarded
+dense ESM polish of every pair).
 
 Per row, after a warm-up call: ``device_ms``, CUDA events recorded around
 one call (the device's span, idle gaps included), and ``host_ms``, the host
@@ -21,10 +23,10 @@ workaround for its TPU relay and are not ported.
 Also the port's kernel launches per call, and, from one ``torch.profiler``
 trace of each entry point at (240, 320), the stage split (the path's
 ``record_function`` ranges, :data:`STAGES`: describe, match, the minimal-set
-draws, K2, the per-pair tail, pose recovery, the chain; the capstone adds
-the pose graph) in host ms and in the device ms each stage launched, the
-device kernels, the device's busy ms (the union of its intervals) and its
-idle share of the call.
+draws, K2, the per-pair tail, the ESM polish where it runs, pose recovery,
+the chain; the capstone adds the pose graph) in host ms and in the device
+ms each stage launched, the device kernels, the device's busy ms (the union
+of its intervals) and its idle share of the call.
 
 Run on a machine with a CUDA card, from the repository root:
 
@@ -72,22 +74,23 @@ def _sequence(shape, loop, device, num_frames=NUM_FRAMES):
     return planar_sequence(g, num_frames, tuple(shape), loop=loop)
 
 
-def _call(frames, k_mat, capstone, cfg=CONFIG):
+def _call(frames, k_mat, capstone, cfg=CONFIG, esm_iters=0):
     if capstone:
         return planar_slam(0, frames, k_mat, cfg, num_corners=NUM_CORNERS,
                            num_octaves=NUM_OCTAVES, plane_depth=PLANE_DEPTH,
-                           strides=STRIDES, esm_iters=0)
+                           strides=STRIDES, esm_iters=esm_iters)
     return frames_to_poses(0, frames, k_mat, cfg, num_corners=NUM_CORNERS,
-                           num_octaves=NUM_OCTAVES, plane_depth=PLANE_DEPTH)
+                           num_octaves=NUM_OCTAVES, plane_depth=PLANE_DEPTH,
+                           esm_iters=esm_iters)
 
 
 def measure(shape=(240, 320), capstone: bool = False, runs: int = 3,
-            device="cuda") -> dict:
+            device="cuda", esm_iters: int = 0) -> dict:
     """One row: device and host ms per call, pairs/s, launches, ATE."""
     frames, poses_gt, k_mat = _sequence(shape, capstone, device)
     pairs = NUM_FRAMES - 1 + (len(odometry.closure_candidates(
         NUM_FRAMES, STRIDES)) if capstone else 0)
-    out = _call(frames, k_mat, capstone)  # warm-up
+    out = _call(frames, k_mat, capstone, esm_iters=esm_iters)  # warm-up
     torch.cuda.synchronize()
     dev_ms, host_ms, launches = [], [], []
     for _ in range(runs):
@@ -96,7 +99,7 @@ def measure(shape=(240, 320), capstone: bool = False, runs: int = 3,
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
-        out = _call(frames, k_mat, capstone)
+        out = _call(frames, k_mat, capstone, esm_iters=esm_iters)
         end.record()
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
@@ -108,6 +111,7 @@ def measure(shape=(240, 320), capstone: bool = False, runs: int = 3,
         "metric": ("capstone_pairs_per_sec_per_chip" if capstone
                    else "pipeline_pairs_per_sec_per_chip"),
         "entry": "planar_slam" if capstone else "frames_to_poses",
+        "esm_iters": esm_iters,
         "frames": NUM_FRAMES, "shape": list(shape), "pairs_per_call": pairs,
         "num_corners": NUM_CORNERS, "num_octaves": NUM_OCTAVES,
         "hypotheses_per_pair": CONFIG.num_hypotheses,
@@ -127,9 +131,10 @@ def measure(shape=(240, 320), capstone: bool = False, runs: int = 3,
 #: ``slam/odometry.py``, ``robust/ransac.py``), one after the other, none
 #: inside another: describe, match, the minimal-set draws, K2, the per-pair
 #: tail (top-K re-score, IRLS refit, LM polish), the general route's fits,
-#: pose recovery, the metric chain, the pose graph.
+#: the guarded ESM polish of all pairs, pose recovery, the metric chain, the
+#: pose graph.
 STAGES = ("vo/describe", "vo/match", "ransac/draw", "ransac/k2",
-          "ransac/tail", "ransac/general", "vo/pose", "vo/chain",
+          "ransac/tail", "ransac/general", "vo/esm", "vo/pose", "vo/chain",
           "vo/posegraph")
 
 
@@ -202,7 +207,7 @@ def trace_split(events) -> dict:
 
 
 def profile_call(shape=(240, 320), capstone: bool = False,
-                 device="cuda") -> dict:
+                 device="cuda", esm_iters: int = 0) -> dict:
     """One traced call (warm: :func:`run` measures it first), read by
     :func:`trace_split`."""
     from torch.profiler import ProfilerActivity, profile
@@ -210,10 +215,10 @@ def profile_call(shape=(240, 320), capstone: bool = False,
     frames, _, k_mat = _sequence(shape, capstone, device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _call(frames, k_mat, capstone)
+        _call(frames, k_mat, capstone, esm_iters=esm_iters)
         torch.cuda.synchronize()
     return {"entry": "planar_slam" if capstone else "frames_to_poses",
-            "shape": list(shape),
+            "shape": list(shape), "esm_iters": esm_iters,
             **trace_split(prof.profiler.kineto_results.events())}
 
 
@@ -228,7 +233,9 @@ def run(runs: int = 3, device="cuda") -> dict:
         "value": base["pairs_per_sec_device"],
         "rows": [base, measure((480, 640), runs=runs, device=device),
                  measure((240, 320), capstone=True, runs=runs,
-                         device=device)],
+                         device=device),
+                 measure((240, 320), capstone=True, runs=runs,
+                         device=device, esm_iters=8)],
         "trace": profile_call((240, 320), device=device),
         "trace_capstone": profile_call((240, 320), capstone=True,
                                        device=device),

@@ -1,1 +1,2 @@
-"""Data: the planar-sequence renderer (``images.planar_sequence``)."""
+"""Data: the planar renderers (``images.planar_sequence``, ``planar_pair``,
+``planar_pair_boxes``)."""

@@ -37,7 +37,8 @@ def bilinear_sample(img: Tensor, xy: Tensor) -> Tensor:
 
     The leading dims of ``img`` are batch dims that ``xy`` starts with (none
     for one image); each image is sampled at its own points.  Returns
-    ``xy.shape[:-1]``.
+    ``xy.shape[:-1]``.  A NaN location samples NaN (its gather reads pixel
+    0: the JAX gather clamps its indices, a torch gather would fault).
     """
     h, w = img.shape[-2:]
     flat = img.reshape(-1, h * w)
@@ -48,8 +49,8 @@ def bilinear_sample(img: Tensor, xy: Tensor) -> Tensor:
     y0 = torch.floor(y)
     fx = x - x0
     fy = y - y0
-    x0 = x0.long()
-    y0 = y0.long()
+    x0 = torch.nan_to_num(x0, nan=0.0).long()
+    y0 = torch.nan_to_num(y0, nan=0.0).long()
     x1 = torch.clamp(x0 + 1, max=w - 1)
     y1 = torch.clamp(y0 + 1, max=h - 1)
 

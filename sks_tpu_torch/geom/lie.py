@@ -162,17 +162,26 @@ def sl3_basis(dtype=torch.float32, device=None) -> Tensor:
     """The 8 generators of sl(3) (traceless 3x3), the homography tangent space.
 
     Ordering: [tx, ty, rot, scale, shear1, shear2, proj_x, proj_y].
+    Built from the rows of an identity made on the device (no element
+    assignment, so no host-to-device copy: the ESM loop calls it every
+    iteration through :func:`sl3_exp`).
     """
-    g = torch.zeros((8, 3, 3), dtype=dtype, device=device)
-    g[0, 0, 2] = 1.0  # tx
-    g[1, 1, 2] = 1.0  # ty
-    g[2, 0, 1], g[2, 1, 0] = -1.0, 1.0  # rotation
-    g[3, 0, 0], g[3, 1, 1], g[3, 2, 2] = 1.0, 1.0, -2.0  # scale
-    g[4, 0, 0], g[4, 1, 1] = 1.0, -1.0  # shear (stretch)
-    g[5, 0, 1], g[5, 1, 0] = 1.0, 1.0  # shear (skew)
-    g[6, 2, 0] = 1.0  # projective x
-    g[7, 2, 1] = 1.0  # projective y
-    return g
+    unit = torch.eye(9, dtype=dtype, device=device)  # row 3i+j: E_ij
+
+    def e(i, j):
+        return unit[3 * i + j]
+
+    g = torch.stack([
+        e(0, 2),  # tx
+        e(1, 2),  # ty
+        e(1, 0) - e(0, 1),  # rotation
+        e(0, 0) + e(1, 1) - 2.0 * e(2, 2),  # scale
+        e(0, 0) - e(1, 1),  # shear (stretch)
+        e(0, 1) + e(1, 0),  # shear (skew)
+        e(2, 0),  # projective x
+        e(2, 1),  # projective y
+    ])
+    return g.reshape(8, 3, 3)
 
 
 def expm3(a: Tensor, terms: int = 12) -> Tensor:

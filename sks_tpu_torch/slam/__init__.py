@@ -1,10 +1,17 @@
-"""Planar SLAM layers: pose graph, odometry and the frames -> poses pipeline.
+"""Planar SLAM layers: ESM tracking, bundle adjustment, pose graph, odometry,
+the frames -> poses pipeline and checkpoints.
 
-Port of ``sks_tpu/slam`` without ESM tracking (``tracking.py``), bundle
-adjustment and the sharded forms, which follow in later slices
-(ROADMAP.md Queue A items 6 and 7).
+Port of ``sks_tpu/slam`` on one device; the sharded forms
+(``sharded_frames_to_poses``, ``sharded_planar_slam``) wait for the
+``parallel/`` slice (ROADMAP.md).
 """
 
+from sks_tpu_torch.slam.ba import (  # noqa: F401
+    BAProblem,
+    ba_residuals,
+    gauss_newton_step,
+    run_ba,
+)
 from sks_tpu_torch.slam.posegraph import (  # noqa: F401
     PoseGraph,
     ate_rmse,
@@ -14,3 +21,7 @@ from sks_tpu_torch.slam.posegraph import (  # noqa: F401
 )
 from sks_tpu_torch.slam.odometry import vo_trajectory  # noqa: F401
 from sks_tpu_torch.slam.pipeline import frames_to_poses, planar_slam  # noqa: F401
+from sks_tpu_torch.slam.tracking import (  # noqa: F401
+    esm_track,
+    esm_track_pyramid,
+)

@@ -11,10 +11,13 @@ the JAX package takes on its TPU) one call of
 launch of the fused solve+score kernel K2; the top-K re-score, IRLS refit and
 LM polish then run pair by pair.  Without it each pair is a general-path
 ``ransac_homography`` (on CUDA, one K1 launch a pair for its batched solve).
-Pose recovery runs batched over all pairs.  Each pair draws from its own
-generator (``utils.streams.pair_generators``), so its fit does not depend on
-the other pairs of its batch; ``indices=`` replaces the draws (the parity
-seam).
+With ``esm_iters > 0`` and the frames, every pair's model is then densely
+polished against the pixels (``slam.tracking.esm_polish_pair_symmetric``,
+all pairs and both directions in one batch) and kept where a guard on the
+matches allows.  Pose recovery runs batched over all pairs.  Each pair
+draws from its own generator (``utils.streams.pair_generators``), so its
+fit does not depend on the other pairs of its batch; ``indices=`` replaces
+the draws (the parity seam).
 """
 
 from __future__ import annotations
@@ -29,19 +32,14 @@ from sks_tpu_torch.robust.ransac import (
     RansacConfig,
     ransac_homography,
     ransac_homography_fused_batch,
+    score_hypotheses,
 )
 from sks_tpu_torch.slam.posegraph import PoseGraph, _inv_se3, optimize_posegraph
+from sks_tpu_torch.slam.tracking import esm_guard, esm_polish_pair_symmetric
 from sks_tpu_torch.utils.streams import CLOSURE_STREAM_OFFSET, pair_generators
 
 __all__ = ["vo_trajectory", "chain_poses", "closure_candidates",
            "fit_pair", "fit_pairs", "chain_metric", "assemble_trajectory"]
-
-
-def _no_esm(esm_iters: int) -> None:
-    if esm_iters:
-        raise NotImplementedError(
-            "esm_iters > 0 (the dense ESM polish, slam/tracking.py) is not "
-            "ported yet: ROADMAP.md Queue A item 6; pass esm_iters=0")
 
 
 def _streams(generator, n: int, like: Tensor, offset: int = 0):
@@ -62,28 +60,67 @@ def fit_pair(generator, p1, p2, pm, k_mat, config, plane_normal,
              f1=None, f2=None, esm_iters: int = 0, *, indices=None):
     """RANSAC homography + pose recovery for one frame pair.
 
-    ``esm_iters > 0`` (the JAX package's dense photometric polish of the
-    RANSAC model against the frames ``f1``, ``f2``) raises
-    ``NotImplementedError`` until ``slam/tracking.py`` is ported.
+    With ``esm_iters > 0`` and the frame pair ``(f1, f2)`` supplied, the
+    RANSAC model is densely polished by photometric alignment before pose
+    recovery, and kept only where :func:`_esm_select`'s guard allows.
 
     Returns (R, t/d, n, num_inliers).
     """
-    _no_esm(esm_iters)
     res = ransac_homography(generator, p1, p2, config, point_mask=pm,
                             indices=indices)
-    r, t, n, _ = recover_pose(res.h, k_mat, k_mat, p1, p2,
+    h, ninl = res.h, res.num_inliers
+    if esm_iters and f1 is not None:
+        h, ninl = _esm_select(h[None], res.inlier_mask[None], f1[None],
+                              f2[None], p1[None], p2[None], pm[None], config,
+                              esm_iters)
+        h, ninl = h[0], ninl[0]
+    r, t, n, _ = recover_pose(h, k_mat, k_mat, p1, p2,
                               normal_prior=plane_normal)
-    return r, t, n, res.num_inliers
+    return r, t, n, ninl
+
+
+def _esm_select(h, inlier_mask, f1, f2, p1, p2, pm, config, esm_iters):
+    """The guarded dense polish of P pair models (the JAX package's
+    ``fit_pair`` body under ``jax.vmap``).
+
+    One :func:`esm_polish_pair_symmetric` call polishes all P models, both
+    directions in one batch; :func:`esm_guard` accepts a polished model only
+    if the median symmetric transfer error of the RANSAC inliers does not
+    grow by more than 10% (a photometric win can be a geometric loss off the
+    plane); the inlier count is that of the model kept, re-scored at the
+    config's threshold.
+
+    Args:
+      h: (P, 3, 3) RANSAC models; inlier_mask: (P, N) their inliers.
+      f1, f2: (P, H, W) frames of each pair; p1, p2: (P, N, 2); pm: (P, N).
+
+    Returns (h (P, 3, 3), num_inliers (P,) int32).
+    """
+    with record_function("vo/esm"):
+        h_esm, _ = esm_polish_pair_symmetric(f1, f2, h, iters=esm_iters)
+        ok = esm_guard(h, h_esm, p1, p2, inlier_mask)
+        inl = torch.stack([
+            score_hypotheses(torch.stack([h[i], h_esm[i]]), p1[i], p2[i],
+                             config.threshold, pm[i], config.scoring,
+                             config.sigma_max, config.df64_scoring)[1]
+            for i in range(h.shape[0])])  # (P, 2, N)
+        h = torch.where(ok[:, None, None], h_esm, h)
+        ninl = torch.sum(torch.where(ok[:, None], inl[:, 1], inl[:, 0]),
+                         dim=-1).to(torch.int32)
+    return h, ninl
 
 
 def fit_pairs(generators, pts1, pts2, masks, k_mat, config, plane_normal,
-              indices=None):
+              indices=None, frames1=None, frames2=None, esm_iters: int = 0):
     """:func:`fit_pair` over a batch of P pairs, batched where it can be.
 
     Args:
       generators: P generators, one a pair (ignored with ``indices``).
       pts1, pts2: (P, N, 2) matches; masks: (P, N) bool.
       indices: optional (P, B, 4) minimal sets in place of the draws.
+      frames1, frames2, esm_iters: (P, H, W) frames of each pair; with
+        ``esm_iters > 0`` all P models are densely polished in one batch
+        (:func:`_esm_select`) after the per-pair fits.
 
     Returns (R (P, 3, 3), t/d (P, 3), n (P, 3), num_inliers (P,) int32).
     """
@@ -100,9 +137,13 @@ def fit_pairs(generators, pts1, pts2, masks, k_mat, config, plane_normal,
                                   else indices[i])
                 for i in range(pts1.shape[0])
             ]
+    h = torch.stack([res.h for res in results])
+    ninl = torch.stack([res.num_inliers for res in results])
+    if esm_iters and frames1 is not None:
+        h, ninl = _esm_select(
+            h, torch.stack([res.inlier_mask for res in results]), frames1,
+            frames2, pts1, pts2, masks, config, esm_iters)
     with record_function("vo/pose"):
-        h = torch.stack([res.h for res in results])
-        ninl = torch.stack([res.num_inliers for res in results])
         r, t, n, _ = recover_pose(h, k_mat, k_mat, pts1, pts2,
                                   normal_prior=plane_normal)
     return r, t, n, ninl
@@ -212,8 +253,10 @@ def vo_trajectory(
         :func:`closure_candidates`); with ``closure_pts1/pts2`` ((E, M, 2)
         matches between those frames) each is fitted like a consecutive pair
         and becomes a pose-graph edge when ``smooth=True``.
-      frames, esm_iters: the dense ESM polish; ``esm_iters > 0`` raises
-        ``NotImplementedError`` (ROADMAP.md Queue A item 6).
+      frames: optional (T, H, W) frames; with ``esm_iters > 0`` every pair
+        fit, consecutive and closure, is densely ESM-polished against its
+        two frames before pose recovery (:func:`_esm_select`).
+      esm_iters: the polish's coarse-level iteration cap (0: no polish).
       indices: optional (T-1, B, 4) minimal sets in place of the draws of
         the consecutive pairs; ``closure_indices`` (E, B, 4) for the
         closures.
@@ -222,7 +265,6 @@ def vo_trajectory(
       dict: poses (T, 4, 4) cam->world, rel (T-1, 4, 4), num_inliers (T-1,),
       and (with closures) closure_inliers (E,).
     """
-    _no_esm(esm_iters)
     t_minus_1 = pts1.shape[0]
     if t_minus_1 >= CLOSURE_STREAM_OFFSET:
         raise ValueError("consecutive-pair streams would collide with the "
@@ -233,19 +275,26 @@ def vo_trajectory(
 
     pm = (torch.ones(pts1.shape[:-1], dtype=torch.bool, device=dev)
           if point_mask is None else point_mask)
+    use_esm = esm_iters > 0 and frames is not None
+    esm = dict(esm_iters=esm_iters if use_esm else 0)
+    if use_esm:
+        esm.update(frames1=frames[:-1], frames2=frames[1:])
     r, t_over_d, n, ninl = fit_pairs(
         _streams(generator, t_minus_1, pts1), pts1, pts2, pm, k_mat, config,
-        plane_normal, indices)
+        plane_normal, indices, **esm)
 
     closure = None
     if closure_pairs is not None:
         e = closure_pts1.shape[0]
         cm = (torch.ones(closure_pts1.shape[:-1], dtype=torch.bool,
                          device=dev) if closure_mask is None else closure_mask)
+        cpl = closure_pairs.long()
+        if use_esm:
+            esm.update(frames1=frames[cpl[:, 0]], frames2=frames[cpl[:, 1]])
         r_c, tt_c, _, ninl_c = fit_pairs(
             _streams(generator, e, pts1, offset=CLOSURE_STREAM_OFFSET),
             closure_pts1, closure_pts2, cm, k_mat, config, plane_normal,
-            closure_indices)
+            closure_indices, **esm)
         closure = (r_c, tt_c, ninl_c, closure_pairs)
 
     return assemble_trajectory(r, t_over_d, n, ninl, plane_depth, smooth,

@@ -5,14 +5,15 @@ detection, oriented patch description, mutual-NN/ratio matching, vectorized
 RANSAC over all pairs at once (with ``config.fused``, one launch of the fused
 kernel K2 for every pair of a batch), homography -> pose decomposition,
 metric scale chaining and, in :func:`planar_slam`, loop-closure fits and
-pose-graph relaxation.  Every stage stays on the frames' device and reads
-nothing back to the host.  Each stage runs inside a
+pose-graph relaxation.  With ``esm_iters > 0`` every pair's model is densely
+polished against its two frames (``slam/tracking.py``, all pairs of a batch
+in one pass of the ESM loop) before pose recovery.  Every stage stays on the
+frames' device and reads nothing back to the host.  Each stage runs inside a
 ``torch.profiler.record_function`` range (``vo/...``, ``ransac/...``), from
 which ``bench/pipeline_fps.py`` reads the stage split of one traced call.
 
-The JAX package's dense ESM polish (``esm_iters > 0``, ``slam/tracking.py``)
-and its sharded forms (``sharded_frames_to_poses``, ``sharded_planar_slam``)
-are not ported yet (ROADMAP.md Queue A items 6 and 7).
+The JAX package's sharded forms (``sharded_frames_to_poses``,
+``sharded_planar_slam``) wait for the ``parallel/`` slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from sks_tpu_torch.robust.ransac import RansacConfig
 from sks_tpu_torch.slam.odometry import (
     _closure_tensor,
     _default_normal,
-    _no_esm,
     _streams,
     chain_metric,
     fit_pairs,
@@ -90,13 +90,12 @@ def frames_to_poses(
         arrays on the CUDA device.
       config: with ``config.fused`` all T-1 pairs are scored in one launch
         of the fused kernel; otherwise each pair is a general-path fit.
-      esm_iters: > 0 raises ``NotImplementedError`` (the dense ESM polish is
-        ROADMAP.md Queue A item 6).
+      esm_iters: > 0 densely ESM-polishes every pair's RANSAC model against
+        its two frames before pose recovery (``slam.odometry._esm_select``).
       indices: optional (T-1, B, 4) minimal sets in place of the draws.
 
     Returns dict: poses, rel (T-1, 4, 4), num_inliers (T-1,).
     """
-    _no_esm(esm_iters)
     frames, k_mat = _inputs(frames, k_mat)
     if plane_normal is None:
         plane_normal = _default_normal(frames)
@@ -106,7 +105,8 @@ def frames_to_poses(
                                           num_octaves)
     r, t_over_d, n, ninl = fit_pairs(_streams(generator, t - 1, p1s), p1s,
                                      p2s, masks, k_mat, config, plane_normal,
-                                     indices)
+                                     indices, frames[:-1], frames[1:],
+                                     esm_iters)
     rel, poses, _ = chain_metric(r, t_over_d, n, plane_depth)
     return {"poses": poses, "rel": rel, "num_inliers": ninl}
 
@@ -139,10 +139,9 @@ def planar_slam(
       strides: closure-candidate strides (frame i matched against i+k).
       smooth: pose-graph relaxation; ``smooth=False`` is
         :func:`frames_to_poses` plus closure diagnostics.
-      esm_iters: the JAX package's default, 8, densely ESM-polishes every
-        pair fit; that polish (``slam/tracking.py``) is not ported yet
-        (ROADMAP.md Queue A item 6), so any value but 0 raises
-        ``NotImplementedError``: pass ``esm_iters=0``.
+      esm_iters: > 0 densely ESM-polishes every pair fit (consecutive and
+        closure) against its two frames before pose recovery; the default,
+        8, is the JAX package's.  0 is the feature-only fit.
       indices: optional (T-1+E, B, 4) minimal sets in place of the draws,
         the consecutive pairs first, then the E closures in the order of
         ``slam.odometry.closure_candidates``.
@@ -151,7 +150,6 @@ def planar_slam(
       dict: poses (T, 4, 4), rel (T-1, 4, 4), num_inliers (T-1,),
       closure_inliers (E,).
     """
-    _no_esm(esm_iters)
     frames, k_mat = _inputs(frames, k_mat)
     t = frames.shape[0]
     dev = frames.device
@@ -164,6 +162,7 @@ def planar_slam(
                                        num_octaves)
     kw = dict(plane_depth=plane_depth, smooth=smooth,
               plane_normal=plane_normal, point_mask=ma[:t - 1],
+              frames=frames, esm_iters=esm_iters,
               indices=None if indices is None else indices[:t - 1])
     if cp.shape[0] == 0:
         # Too few frames for any closure stride: the plain odometry chain.

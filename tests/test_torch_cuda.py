@@ -12,7 +12,9 @@ against N = 2,047 points, and at 2,048 and 65,536 against 2,000, 1,999 and 20
 points with one pair and a pair axis of 8; the six K5 kinds at B = 2^20 and
 1,000, from float32 and float64 storage.  The VO pipeline at the JAX
 package's benchmark configuration on 6 frames rendered at (240, 320): one K2
-launch a fused batch, the card against the CPU, and no host sync.
+launch a fused batch, the card against the CPU, and no host sync; with the
+dense ESM polish too (``planar_slam``'s default), and the batched polish of
+5 pairs against the CPU.  Bundle adjustment in float64 against the CPU.
 """
 
 import pytest
@@ -641,3 +643,86 @@ def test_frames_to_poses_makes_no_host_sync(vo_sequence):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(out["poses"]).all()
     assert torch.isfinite(slam["poses"]).all()
+
+
+# ---- ESM and bundle adjustment on the card --------------------------------
+
+def test_esm_polish_on_cuda_matches_cpu_without_host_sync(vo_sequence):
+    """The batched symmetric polish of 5 pairs on the card: nothing read
+    back inside it (``set_sync_debug_mode("error")`` after a warm-up), each
+    model within 0.01 px of the same call on CPU tensors at the template's
+    corners (float32 sums over 59,904 pixels in another order).  Each pair:
+    a frame and its view under a known small homography, the start 1 px
+    off it."""
+    from sks_tpu_torch.data.images import warp_image
+    from sks_tpu_torch.geom.homography import apply_homography
+    from sks_tpu_torch.slam.tracking import esm_polish_pair_symmetric
+
+    f1 = vo_sequence[0][:5]
+    dev = f1.device
+    h_true = torch.eye(3, device=dev).repeat(5, 1, 1)
+    h_true[:, 0, 2] = torch.arange(5, device=dev) - 2.0
+    h_true[:, 1, 0] = 0.01
+    h_true[:, 2, 1] = 1e-5
+    f2 = torch.stack([warp_image(f1[i], h_true[i]) for i in range(5)])
+    h0 = h_true.clone()
+    h0[:, :2, 2] += 1.0
+    esm_polish_pair_symmetric(f1, f2, h0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h_g, rms_g = esm_polish_pair_symmetric(f1, f2, h0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    h_c, rms_c = esm_polish_pair_symmetric(f1.cpu(), f2.cpu(), h0.cpu())
+    corners = torch.tensor([[16.0, 16.0], [304.0, 16.0], [16.0, 224.0],
+                            [304.0, 224.0]], dtype=torch.float64)
+    gap = (apply_homography(h_g.cpu().double(), corners)
+           - apply_homography(h_c.double(), corners)).norm(dim=-1)
+    assert gap.max().item() <= 0.01
+    assert torch.allclose(rms_g.cpu(), rms_c, rtol=1e-3)
+
+
+def test_vo_with_esm_makes_no_host_sync(vo_sequence):
+    """planar_slam with its default esm_iters=8 and frames_to_poses with
+    the polish run from pixels to poses without reading the card."""
+    import sks_tpu_torch
+
+    frames, _, k_mat = vo_sequence
+    kw = dict(num_corners=384, num_octaves=2, plane_depth=3.0)
+    sks_tpu_torch.planar_slam(1, frames, k_mat, _vo_config(True),
+                              strides=(2,), **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slam = sks_tpu_torch.planar_slam(1, frames, k_mat, _vo_config(True),
+                                         strides=(2,), **kw)
+        out = sks_tpu_torch.frames_to_poses(1, frames, k_mat,
+                                            _vo_config(True), esm_iters=8,
+                                            **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(slam["poses"]).all()
+    assert torch.isfinite(out["poses"]).all()
+
+
+def test_bundle_adjustment_on_cuda_matches_cpu(dev):
+    """run_ba in float64 on the card against the CPU, at the damping of the
+    JAX package's ``bench/ba_scale.py`` (1e-4: the scale of the scene is
+    free, camera 0 alone being gauged, and the damping is what pins it):
+    the same Jacobians, blocks and solves; poses within 1e-6 of their
+    largest entry, the RMS within 1e-9 relative (seen: 6e-12 in the
+    rotations, 1e-11 in the RMS)."""
+    from sks_tpu_torch.slam.ba import rms_reprojection, run_ba, synth_ba_problem
+
+    _, init = synth_ba_problem(torch.Generator().manual_seed(0), num_cams=4,
+                               num_points=64, dtype=torch.float64)
+    on_card = type(init)(*(x.to(dev) for x in (
+        init.poses, init.points, init.intrinsics, init.obs, init.mask)))
+    got = run_ba(on_card, iters=5, damping=1e-4)
+    want = run_ba(init, iters=5, damping=1e-4)
+    assert got.poses.device == dev
+    gap = (got.poses.cpu() - want.poses).abs().max()
+    assert gap.item() <= 1e-6 * want.poses.abs().max().item()
+    rms_g, rms_c = rms_reprojection(got).item(), rms_reprojection(want).item()
+    assert abs(rms_g - rms_c) <= 1e-9 * rms_c and rms_c < 1.0

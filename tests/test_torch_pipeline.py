@@ -17,6 +17,10 @@ differences to 6e-4 in the relative pose.
 From pixels, where the two feature pipelines may flip a borderline match,
 poses within 5e-3 and inlier counts within 2: the bound the JAX package
 allows its sharded form (``tests/test_pipeline.py``).
+The guarded ESM polish (``esm_iters > 0``) is held on matches drawn from the
+true plane homography between two rendered frames (160 of them with 0.6 px
+of noise: at test size the detected matches are too few for the guard to
+ever take the polished model): equal inlier counts and poses within 1e-4.
 """
 
 import dataclasses
@@ -278,20 +282,88 @@ def test_trace_split_assigns_device_time_to_stages():
 
 
 def test_esm_polish_raises_until_it_is_ported(seq, jmatches):
+    """The dense ESM polish is ported: every entry point that takes
+    ``esm_iters`` runs it (``planar_slam`` by default, ``esm_iters=8``) and
+    returns finite poses, where it used to raise ``NotImplementedError``."""
     frames, _, k_mat = (T(x) for x in seq)
     p1, p2, m = (T(x) for x in jmatches)
     cfg = _cfg(JCFG)
     normal = torch.tensor([0.0, 0.0, 1.0])
-    calls = [
-        lambda: todo.fit_pair(None, p1[0], p2[0], m[0], k_mat, cfg, normal,
-                              frames[0], frames[1], esm_iters=4),
-        lambda: todo.vo_trajectory(None, p1, p2, k_mat, cfg, frames=frames,
-                                   esm_iters=8),
-        lambda: sks_tpu_torch.frames_to_poses(None, frames, k_mat, cfg,
-                                              esm_iters=8),
-        # planar_slam keeps the JAX package's default, esm_iters=8.
-        lambda: sks_tpu_torch.planar_slam(None, frames, k_mat, cfg),
+    p = FRAMES - 1
+    r, t, _, ninl = todo.fit_pair(None, p1[0], p2[0], m[0], k_mat, cfg,
+                                  normal, frames[0], frames[1], esm_iters=4)
+    assert torch.isfinite(r).all() and torch.isfinite(t).all()
+    assert int(ninl) >= 4
+    outs = [
+        todo.vo_trajectory(None, p1[:p], p2[:p], k_mat, cfg, frames=frames,
+                           point_mask=m[:p], esm_iters=8),
+        sks_tpu_torch.frames_to_poses(None, frames, k_mat, cfg, esm_iters=8,
+                                      **KW),
+        sks_tpu_torch.planar_slam(None, frames, k_mat, cfg, **KW),
     ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            call()
+    for out in outs:
+        assert out["poses"].shape == (FRAMES, 4, 4)
+        assert torch.isfinite(out["poses"]).all()
+
+
+def _esm_matches(seq, i, n=160, noise=0.6):
+    """Matches of frames i -> i+1 of ``seq`` drawn from the true plane
+    homography with ``noise`` px: enough inliers for the guard to judge."""
+    frames, poses, k_mat = (x.astype(np.float64) for x in seq)
+    w2c_i, w2c_j = np.linalg.inv(poses[i]), np.linalg.inv(poses[i + 1])
+    rel = w2c_j @ poses[i]  # cam_i -> cam_{i+1}
+    n_i = w2c_i[:3, :3] @ [0.0, 0.0, 1.0]
+    d_i = 3.0 + n_i @ w2c_i[:3, 3]
+    h = k_mat @ (rel[:3, :3] + np.outer(rel[:3, 3], n_i) / d_i) @ \
+        np.linalg.inv(k_mat)
+    rng = np.random.default_rng(i)
+    p1 = rng.uniform([8.0, 8.0], [120.0, 88.0], (n, 2))
+    q = np.c_[p1, np.ones(n)] @ h.T
+    p2 = q[:, :2] / q[:, 2:] + rng.normal(0.0, noise, (n, 2))
+    return p1.astype(np.float32), p2.astype(np.float32), np.ones(n, bool)
+
+
+@pytest.mark.parametrize("pair", [1, 2])
+def test_fit_pair_with_esm_matches_jax(seq, pair):
+    """``fit_pair(esm_iters=8)`` on the JAX package's draws (``indices=``):
+    the same inlier count and pose (1e-4).  On pair 1 the guard keeps the
+    RANSAC model, on pair 2 it takes the polished one (the JAX side's pose
+    moves)."""
+    frames, _, k_mat = seq
+    p1, p2, m = _esm_matches(seq, pair)
+    draws = np.asarray(jr._sample_chunk(KEY, p1.shape[0], JCFG, None,
+                                        jnp.asarray(m)))
+    normal = np.array([0.0, 0.0, 1.0], np.float32)
+    f1, f2 = frames[pair], frames[pair + 1]
+    r_j, t_j, _, n_j = jodo.fit_pair(KEY, p1, p2, m, k_mat, JCFG, normal,
+                                     f1, f2, 8)
+    r_0 = jodo.fit_pair(KEY, p1, p2, m, k_mat, JCFG, normal)[0]
+    r_t, t_t, _, n_t = todo.fit_pair(
+        None, T(p1), T(p2), T(m), T(k_mat), _cfg(JCFG), T(normal), T(f1),
+        T(f2), 8, indices=T(draws))
+    assert int(n_t) == int(n_j)
+    np.testing.assert_allclose(to_np(r_t), np.asarray(r_j), atol=1e-4)
+    np.testing.assert_allclose(to_np(t_t), np.asarray(t_j), atol=1e-4)
+    moved = np.abs(np.asarray(r_j) - np.asarray(r_0)).max()
+    assert (moved > 1e-3) == (pair == 2), moved
+
+
+def test_a_batch_of_esm_fits_equals_its_fits_alone(seq):
+    """``fit_pairs`` polishes all pairs in one ESM batch; each pair's result
+    is its ``fit_pair`` alone (inliers equal, poses within 1e-4: the CPU's
+    batched products round otherwise than single ones)."""
+    frames, _, k_mat = (T(x) for x in seq)
+    m3 = [_esm_matches(seq, i) for i in range(3)]
+    p1, p2, m = (T(np.stack(x)) for x in zip(*m3))
+    cfg = _cfg(JCFG)
+    normal = torch.tensor([0.0, 0.0, 1.0])
+    r, t, _, ninl = todo.fit_pairs(pair_generators(4, 3), p1, p2, m, k_mat,
+                                   cfg, normal, None, frames[:3],
+                                   frames[1:4], esm_iters=8)
+    for i, g in enumerate(pair_generators(4, 3)):
+        r_i, t_i, _, n_i = todo.fit_pair(g, p1[i], p2[i], m[i], k_mat, cfg,
+                                         normal, frames[i], frames[i + 1],
+                                         esm_iters=8)
+        assert int(n_i) == int(ninl[i])
+        torch.testing.assert_close(r_i, r[i], rtol=0, atol=1e-4)
+        torch.testing.assert_close(t_i, t[i], rtol=0, atol=1e-4)
