@@ -33,6 +33,11 @@ shape; then its pairs/s in device and host time, with the stage split and
 the device's idle share from one trace of each entry point
 (``sks_tpu_torch/bench/pipeline_fps.py``).
 
+A fourth, counters reset again: the learned models (``sks_tpu_torch.models``)
+at full width, the four solver heads' H and gradients and both networks'
+forwards on the card against the CPU, each network trained 300 steps with
+its held-out MACE before and after; no kernel of the repo launches there.
+
 It also times the ablation instances of the NDLT and HO kernels
 (``sks_tpu_torch/bench/ndlt_ablation.py``, ``ho_ablation.py``), holds the
 Jacobi rotation's hand-written square root and reciprocal against the IEEE
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -125,6 +131,155 @@ def ptxas_entries(log: str) -> list[dict]:
             out[-1]["static_smem_bytes"] = (
                 int(ln.split("bytes smem")[0].split()[-1])
                 if "bytes smem" in ln else 0)
+    return out
+
+
+# One train step on the card against the CPU (``models_phase``): the largest
+# gradient and update gaps over the parameter tensors, each over the CPU's
+# norm; ~10x the largest readings on an H100, gradients 1.7e-6 (CNN) and
+# 8.0e-7 (IHN), updates 4.7e-4 and 2.3e-5.
+STEP_GRAD_TOL = 2e-5
+STEP_UPDATE_TOL = 5e-3
+
+
+def models_phase(torch, dev, check) -> dict:
+    """The learned models at full width on the card (``sks_tpu_torch.models``).
+
+    Heads: all four, H and the gradient of a fixed random weighting of H to
+    the offsets, B = 64, on the card against the CPU: float64 within 1e-9 of
+    the largest entry; float32 H and its gradient within 1e-4.  Models:
+    ``HomographyNet`` and the IHN (dim 64, 6 iterations) built on the card
+    from seeded generators; a forward of 32 held-out pairs (64 x 64) against
+    the same weights on the CPU within 1e-5 of the largest offset (TF32
+    convs round to 10 mantissa bits, ~1e-3).  One train step of each at
+    batch 16 on the card and on the CPU from the same weights and fresh
+    Adam: each
+    parameter's gradient and its update (after minus before), card against
+    CPU, over the CPU's norm of it, within STEP_GRAD_TOL and STEP_UPDATE_TOL
+    (a skipped step is 1 away, a reversed one 2).  Each then trained 300
+    steps at batch 64 on fresh batches rendered on the card, then one step
+    under ``set_sync_debug_mode("error")``: held-out MACE on 256 pairs from
+    a generator of their own must fall, everything finite.  Times: the
+    training loop's device span and host time a step (its batch renders
+    included); one traced forward and one traced train step: their kernels,
+    the device's busy ms (their device time) and the step's idle share
+    (``bench/models_mace.step_trace``).
+    """
+    from sks_tpu_torch import models as M
+    from sks_tpu_torch.bench.models_mace import mace, step_trace, train
+    from sks_tpu_torch.models.deep_homography import (
+        TrainState,
+        synth_training_batch,
+    )
+
+    def gap(a, b):
+        return ((a.cpu().double() - b.cpu().double()).abs().max()
+                / b.cpu().double().abs().max()).item()
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def norm_gap(a, b):
+        b = b.double()
+        return ((a.cpu().double() - b).norm() / b.norm()).item()
+
+    def step_gaps(model, state, twin, step, pair, off):
+        """Largest gradient and update gaps over the parameter tensors of
+        one step on the card and on the CPU."""
+        before = [p.detach().clone() for p in model.parameters()]
+        step(model, state, pair, off)
+        step(twin, TrainState.create(twin), pair.cpu(), off.cpu())
+        grads, updates = [], []
+        for p, q, p0 in zip(model.parameters(), twin.parameters(), before):
+            grads.append(norm_gap(p.grad, q.grad))
+            updates.append(norm_gap(p.detach() - p0, q.detach() - p0.cpu()))
+        return max(grads), max(updates)
+
+    out = {"batch": 64, "image_size": 64, "eval_batch": 256, "steps": 300,
+           "heads": {}}
+    t_phase = time.perf_counter()
+    g = gen(9)
+    for dt, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        origin = torch.rand((64, 2), generator=g, device=dev, dtype=dt) * 64
+        size = 32 + torch.rand((64, 2), generator=g, device=dev,
+                               dtype=dt) * 96
+        offsets = (torch.rand((64, 4, 2), generator=g, device=dev, dtype=dt)
+                   - 0.5) * 32
+        weights = torch.randn((64, 3, 3), generator=g, device=dev, dtype=dt)
+        for method in sorted(M.HEAD_METHODS):
+            runs = []
+            for where in (dev, torch.device("cpu")):
+                o = offsets.to(where).detach().clone().requires_grad_()
+                h = M.offsets_to_h(o, origin.to(where), size.to(where),
+                                   method)
+                torch.sum(h * weights.to(where)).backward()
+                runs.append((h.detach(), o.grad))
+            (h_g, g_g), (h_c, g_c) = runs
+            row = {"h_gap": gap(h_g, h_c), "grad_gap": gap(g_g, g_c),
+                   "finite": bool(torch.isfinite(h_g).all()
+                                  and torch.isfinite(g_g).all())}
+            out["heads"][f"{method}_{str(dt)[6:]}"] = row
+            check(row["finite"] and row["h_gap"] <= tol
+                  and row["grad_gap"] <= tol,
+                  f"models: head {method} {dt} card vs CPU {row}")
+
+    pair_ev, off_ev = synth_training_batch(gen(5), 256)
+    models = (
+        ("cnn", M.create_train_state(gen(1), device=dev), M.HomographyNet(),
+         M.train_step, lambda m, p: m(p)),
+        ("ihn", M.create_ihn_state(gen(2), device=dev),
+         M.IterativeHomographyNet(), M.ihn_train_step,
+         lambda m, p: m(p)[-1]),
+    )
+    for name, (model, state), twin, step, predict in models:
+        twin.load_state_dict({k: v.cpu() for k, v in
+                              model.state_dict().items()})
+        with torch.no_grad():
+            forward_gap = gap(model(pair_ev[:32]), twin(pair_ev[:32].cpu()))
+            before = mace(predict(model, pair_ev), off_ev).item()
+        grad_gap, update_gap = step_gaps(model, state, twin, step,
+                                         *synth_training_batch(gen(7), 16))
+        data = gen(6)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        loss = train(step, model, state, data, out["steps"], 64, 64)
+        ev1.record()
+        ev1.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / out["steps"]
+        pair, off = synth_training_batch(data, 64)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, checked_loss = step(model, state, pair, off)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        with torch.no_grad():
+            after = mace(predict(model, pair_ev), off_ev).item()
+            forward = step_trace(lambda: model(pair))
+        traced = step_trace(lambda: step(model, state, pair, off))
+        row = {"forward_card_vs_cpu": forward_gap,
+               "step_grad_card_vs_cpu": grad_gap,
+               "step_update_card_vs_cpu": update_gap,
+               "mace_untrained_px": before, "mace_trained_px": after,
+               "final_train_loss": loss.item(),
+               "checked_step_loss": checked_loss.item(),
+               "train_device_ms_per_step": ev0.elapsed_time(ev1)
+               / out["steps"],
+               "train_host_ms_per_step": host_ms,
+               "forward_device_ms": forward["busy_ms"],
+               "forward_kernels": forward["device_kernels"],
+               "step_device_ms": traced["busy_ms"],
+               "step_kernels": traced["device_kernels"],
+               "step_idle_share": traced["idle_share"]}
+        out[name] = row
+        check(forward_gap <= 1e-5 and grad_gap <= STEP_GRAD_TOL
+              and update_gap <= STEP_UPDATE_TOL and after < before
+              and all(math.isfinite(v) for v in row.values()),
+              f"models: {name} {row}")
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1062,6 +1217,16 @@ def main() -> int:
           <= 1e-6 * f64["rms_after_cpu_px"]
           and f64["rotation_card_vs_cpu"] <= 1e-6, f"ba: {ba}")
     emit("ba", card=smi, **ba)
+
+    # ---- 5g. the learned models: the four heads, HomographyNet, the IHN ----
+    # The JAX models reach no pallas_call: convs and dense layers are cuDNN /
+    # cuBLAS in float32 (TF32 off), the IHN's warp eager gathers.  With the
+    # counters at 0, no kernel of the repo may launch across the phase.
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    emit("models", card=smi, **models_phase(torch, dev, check))
+    check(not any(K.LAUNCHES.values()),
+          f"models: the path launched a kernel of the repo: {K.LAUNCHES}")
 
     # Pairs/s in device and host time, the stage split, launches and the
     # device's idle share (bench/pipeline_fps.py); its launches are its own.

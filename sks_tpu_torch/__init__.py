@@ -18,8 +18,10 @@ visual-odometry pipeline from pixels to poses (``frames_to_poses``,
 ``planar_slam``: Harris features, descriptors, matching, batched RANSAC with
 one fused-kernel launch for all pairs, the dense ESM polish of every pair,
 pose recovery, chaining and the pose graph), with bundle adjustment and
-checkpoints (``slam.ba``, ``slam.checkpoint``); the rest of ``sks_tpu``
-follows slice by slice (see ROADMAP.md).
+checkpoints (``slam.ba``, ``slam.checkpoint``), and the learned models
+(``sks_tpu_torch.models``: the four differentiable solver heads
+``offsets_to_h``, ``HomographyNet`` and the iterative IHN with their train
+steps); the rest of ``sks_tpu`` follows slice by slice (see ROADMAP.md).
 """
 
 import os as _os

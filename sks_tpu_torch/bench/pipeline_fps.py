@@ -39,6 +39,7 @@ import bisect
 import json
 import statistics
 import time
+from collections import Counter
 
 import torch
 
@@ -150,22 +151,30 @@ def trace_split(events) -> dict:
     else the stage whose device-side copy holds it (an event of the range's
     name on the device, spanning the kernels launched inside the range: how
     K2, launched through ``ctypes`` and not by an ATen operation, is found),
-    else "other".  Those copies are not device work.  ``busy_ms`` is the
+    else "other".  Those copies, and every device event named as a host
+    event is (the profiler copies some host ranges to the device, such as
+    Adam's ``Optimizer.step``), are not device work.  ``busy_ms`` is the
     union of the device intervals; ``span_ms`` runs from the first to the
     last event of the call, host or device; ``idle_share = 1 - busy_ms /
-    span_ms``.  Read from the raw events: a call launches some 470,000
-    kernels, and building the profiler's ``FunctionEvent`` tree for them
-    takes minutes.
+    span_ms``; ``top_kernels_ms`` the six device kernels that take the most
+    summed ms, by name.  Read from the raw events: a call launches some
+    470,000 kernels, and building the profiler's ``FunctionEvent`` tree for
+    them takes minutes.
     """
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(events)
+    host_names = {evt.name() for evt in events if evt.device_type() != cuda}
     ranges, dev_ranges, op_start, on_device, every = [], [], {}, [], []
+    kernel_ms = Counter()
     for evt in events:
         start, end, name = evt.start_ns(), evt.end_ns(), evt.name()
         every.append((start, end))
-        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+        if evt.device_type() == cuda:
             if name in STAGES:
                 dev_ranges.append((start, end, name))
-            else:
+            elif name not in host_names:
                 on_device.append((start, end, evt.linked_correlation_id()))
+                kernel_ms[name[:100]] += (end - start) / 1e6
         elif name in STAGES:
             ranges.append((start, end, name))
         elif evt.correlation_id() and not name.startswith("cuda"):
@@ -188,7 +197,8 @@ def trace_split(events) -> dict:
         device[name] = device.get(name, 0.0) + (end - start) / 1e6
     out = {"stages_host_ms": host, "stages_device_ms": device,
            "device_kernels": len(on_device), "busy_ms": None,
-           "span_ms": None, "idle_share": None}
+           "span_ms": None, "idle_share": None,
+           "top_kernels_ms": kernel_ms.most_common(6)}
     if not on_device:
         return out
     intervals = sorted((s, e) for s, e, _ in on_device)

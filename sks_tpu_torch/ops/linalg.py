@@ -60,12 +60,27 @@ def jacobi_eigh(a: Tensor, sweeps: int = 8):
       (eigenvalues (..., n) ascending, eigenvectors (..., n, n) columns).
     """
     n = a.shape[-1]
+    # Under autograd each write goes into a fresh copy, since the products
+    # save views of the matrix being updated; without it the writes stay in
+    # place (the IRLS refit calls this eagerly, and a copy is a launch).
+    grad = torch.is_grad_enabled() and a.requires_grad
     a = a.clone()
     v = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape).clone()
     # Smallest normal; added (un-squared: tiny**2 underflows to 0) under the
     # hypot sqrt so an already-diagonal pair gives t = 0/sqrt(tiny), not 0/0.
     tiny = torch.finfo(a.dtype).tiny
     pairs = [(p, q) for p in range(n) for q in range(p + 1, n)]
+    if grad:
+        # A pair whose diagonal entries and coupling all agree to within
+        # rounding (tau and apq both at rounding level: a rectangle's DLT
+        # normal matrix has such ties, and so has every degenerate
+        # eigenspace) turns by an angle that is rounding noise, and t's
+        # derivative there, ~1 / (|tau| + |apq|), amplifies the rounding
+        # left in the cotangent to O(1) and beyond.  Such an angle is held
+        # constant under autograd; the Frobenius norm sets the scale, as the
+        # rotations keep it.
+        floor = 64 * torch.finfo(a.dtype).eps * torch.linalg.matrix_norm(
+            a.detach())
 
     for _ in range(sweeps):
         for p, q in pairs:
@@ -75,7 +90,12 @@ def jacobi_eigh(a: Tensor, sweeps: int = 8):
             tau = (aqq - app) * 0.5
             sgn = torch.where(tau >= 0, 1.0, -1.0).to(a.dtype)
             hyp = torch.sqrt(tau * tau + apq * apq + tiny)
-            t = sgn * apq / (sgn * tau + hyp)
+            if grad:
+                den = sgn * tau + hyp
+                t = sgn * apq / den
+                t = torch.where(den < floor, t.detach(), t)
+            else:
+                t = sgn * apq / (sgn * tau + hyp)
             c = 1.0 / torch.sqrt(t * t + 1)
             s = t * c
             c_, s_ = c[..., None], s[..., None]
@@ -85,16 +105,22 @@ def jacobi_eigh(a: Tensor, sweeps: int = 8):
             rp = a[..., p, :]
             rq = a[..., q, :]
             new_p, new_q = c_ * rp - s_ * rq, s_ * rp + c_ * rq
+            if grad:
+                a = a.clone()
             a[..., p, :] = new_p
             a[..., q, :] = new_q
             cp = a[..., :, p]
             cq = a[..., :, q]
             new_p, new_q = c_ * cp - s_ * cq, s_ * cp + c_ * cq
+            if grad:
+                a = a.clone()
             a[..., :, p] = new_p
             a[..., :, q] = new_q
             vp = v[..., :, p]
             vq = v[..., :, q]
             new_p, new_q = c_ * vp - s_ * vq, s_ * vp + c_ * vq
+            if grad:
+                v = v.clone()
             v[..., :, p] = new_p
             v[..., :, q] = new_q
 
@@ -388,6 +414,8 @@ def solve_unrolled(a: Tensor, b: Tensor, pivot: bool = False) -> Tensor:
         b = b[..., None]
     n = a.shape[-1]
     t = torch.cat([a, b], dim=-1)
+    # As in jacobi_eigh: a fresh copy before each row write under autograd.
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
 
     for k in range(n):
         if pivot:
@@ -400,6 +428,8 @@ def solve_unrolled(a: Tensor, b: Tensor, pivot: bool = False) -> Tensor:
             t[..., k, :] = pivrow
         inv = 1.0 / t[..., k, k]
         rowk = t[..., k, :] * inv[..., None]
+        if grad:
+            t = t.clone()
         t[..., k, :] = rowk  # t is this function's own tensor
         update = t[..., :, k, None] * rowk[..., None, :]
         keep = (torch.arange(n, device=a.device) != k)[:, None]

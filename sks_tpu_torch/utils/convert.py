@@ -1,11 +1,12 @@
 """Carry state across from the JAX package: configs in, results out.
 
-The port has no learned parameters; what carries across is the
-``RansacConfig``, the pose graph, the BA problem and the input arrays (ESM
-has no parameters: it carries images and a start homography).  Arrays pass
-as numpy (``torch.as_tensor``); configs, graphs and problems pass as plain
-mappings, e.g. ``dataclasses.asdict`` of a ``sks_tpu.robust.RansacConfig``,
-a ``sks_tpu.slam.PoseGraph`` or a ``sks_tpu.slam.BAProblem``.
+What carries across is the ``RansacConfig``, the pose graph, the BA problem,
+the input arrays (ESM has no parameters: it carries images and a start
+homography) and the learned models' flax parameters.  Arrays pass as numpy
+(``torch.as_tensor``); configs, graphs and problems pass as plain mappings,
+e.g. ``dataclasses.asdict`` of a ``sks_tpu.robust.RansacConfig``, a
+``sks_tpu.slam.PoseGraph`` or a ``sks_tpu.slam.BAProblem``; a flax parameter
+tree as nested mappings of arrays.  An optimizer's state does not carry.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ import numpy as np
 
 import torch
 
+from sks_tpu_torch.models.deep_homography import HomographyNet
+from sks_tpu_torch.models.iterative import IterativeHomographyNet
 from sks_tpu_torch.robust.ransac import RansacConfig, RansacResult
 from sks_tpu_torch.slam.ba import BAProblem
 from sks_tpu_torch.slam.posegraph import PoseGraph
 
 __all__ = ["ransac_config_from", "result_to_numpy", "posegraph_from",
-           "ba_problem_from"]
+           "ba_problem_from", "homography_net_state_from", "ihn_state_from"]
 
 
 def ransac_config_from(mapping: Mapping) -> RansacConfig:
@@ -81,3 +84,82 @@ def _fields_of(cls, mapping: Mapping) -> dict:
                          f"{sorted(mapping)}")
     # A copy: arrays of the JAX package come through numpy read-only.
     return {k: torch.tensor(np.asarray(mapping[k])) for k in known}
+
+
+def homography_net_state_from(params: Mapping) -> dict:
+    """A ``state_dict`` for the port's ``HomographyNet()`` (64 x 64 pairs)
+    from the JAX package's flax parameter tree ``{'params': {'Conv_0'..
+    'Conv_2', 'Dense_0', 'Dense_1'}}``, each ``{'kernel', 'bias'}`` (numpy
+    or JAX arrays).
+
+    Conv kernels (kh, kw, in, out) become (out, in, kh, kw) and dense
+    kernels (in, out) become (out, in); ``Dense_0``'s rows stay in the H, W,
+    C order in which both packages flatten the feature map.  Raises
+    ``ValueError`` on a missing or extra leaf or a shape the module does not
+    have.
+    """
+    names = {f"Conv_{i}": f"convs.{i}" for i in range(3)}
+    names.update(Dense_0="dense0", Dense_1="dense1")
+    return _flax_state(_params_of(params), names, HomographyNet())
+
+
+def ihn_state_from(params: Mapping, dim: int = 64) -> dict:
+    """A ``state_dict`` for the port's ``IterativeHomographyNet(dim)`` from
+    the JAX package's flax parameter tree ``{'params': {'_Encoder_0':
+    {Conv_0, Conv_1}, '_Update_0': {Conv_0, Conv_1, Dense_0, Dense_1}}}``;
+    kernels transposed and leaves checked as in
+    :func:`homography_net_state_from`."""
+    tree = _params_of(params)
+    names = {"_Encoder_0/Conv_0": "encoder.conv0",
+             "_Encoder_0/Conv_1": "encoder.conv1",
+             "_Update_0/Conv_0": "update.conv0",
+             "_Update_0/Conv_1": "update.conv1",
+             "_Update_0/Dense_0": "update.dense0",
+             "_Update_0/Dense_1": "update.dense1"}
+    flat = {f"{outer}/{inner}": leaf
+            for outer, sub in tree.items() for inner, leaf in
+            (sub.items() if isinstance(sub, Mapping) and sub
+             else [("", sub)])}
+    return _flax_state(flat, names, IterativeHomographyNet(dim, iters=1))
+
+
+def _params_of(tree) -> Mapping:
+    """The ``'params'`` collection of a flax variable tree."""
+    if not isinstance(tree, Mapping) or sorted(tree) != ["params"]:
+        raise ValueError(f"expected a flax tree {{'params': ...}}; got "
+                         f"{_keys(tree)}")
+    return tree["params"]
+
+
+def _flax_state(layers: Mapping, names: dict, like: torch.nn.Module) -> dict:
+    """``layers`` (flax layer name -> {'kernel', 'bias'}) as a state_dict
+    with ``like``'s keys and shapes, through ``names`` (flax -> torch
+    prefix); raises ``ValueError`` on any mismatch."""
+    if sorted(layers) != sorted(names):
+        raise ValueError(f"expected the layers {sorted(names)}; got "
+                         f"{sorted(layers)}")
+    want = like.state_dict()
+    out = {}
+    for flax_name, prefix in names.items():
+        leaves = layers[flax_name]
+        if not isinstance(leaves, Mapping) or sorted(leaves) != ["bias",
+                                                                 "kernel"]:
+            raise ValueError(f"{flax_name}: expected the leaves ['bias', "
+                             f"'kernel']; got {_keys(leaves)}")
+        kernel = torch.tensor(np.asarray(leaves["kernel"]))
+        kernel = (kernel.permute(3, 2, 0, 1) if kernel.dim() == 4
+                  else kernel.T)
+        for leaf, value in (("weight", kernel),
+                            ("bias", torch.tensor(np.asarray(
+                                leaves["bias"])))):
+            key = f"{prefix}.{leaf}"
+            if value.shape != want[key].shape:
+                raise ValueError(f"{flax_name}: {leaf} of shape "
+                                 f"{tuple(value.shape)} where the module "
+                                 f"has {tuple(want[key].shape)}")
+            out[key] = value.contiguous()
+    return out
+
+
+def _keys(x) -> list:
+    return sorted(x) if isinstance(x, Mapping) else [type(x).__name__]

@@ -17,6 +17,8 @@ dense ESM polish too (``planar_slam``'s default), and the batched polish of
 5 pairs against the CPU.  Bundle adjustment in float64 against the CPU.
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -726,3 +728,129 @@ def test_bundle_adjustment_on_cuda_matches_cpu(dev):
     assert gap.item() <= 1e-6 * want.poses.abs().max().item()
     rms_g, rms_c = rms_reprojection(got).item(), rms_reprojection(want).item()
     assert abs(rms_g - rms_c) <= 1e-9 * rms_c and rms_c < 1.0
+
+
+# ---- the learned models (sks_tpu_torch.models) -------------------------------
+
+def _head_inputs(dev, dtype, b=64):
+    g = torch.Generator(device=dev).manual_seed(9)
+    origin = torch.rand((b, 2), generator=g, device=dev, dtype=dtype) * 64
+    size = 32 + torch.rand((b, 2), generator=g, device=dev, dtype=dtype) * 96
+    offsets = (torch.rand((b, 4, 2), generator=g, device=dev, dtype=dtype)
+               - 0.5) * 32
+    weights = torch.randn((b, 3, 3), generator=g, device=dev, dtype=dtype)
+    return offsets, origin, size, weights
+
+
+def _head_grad(method, offsets, origin, size, weights):
+    from sks_tpu_torch.models import offsets_to_h
+
+    o = offsets.clone().requires_grad_()
+    h = offsets_to_h(o, origin, size, method)
+    torch.sum(h * weights).backward()
+    return h.detach(), o.grad
+
+
+def _gap(a, b):
+    """Largest difference over the largest entry of ``b``."""
+    return ((a.cpu().double() - b.double()).abs().max()
+            / b.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("method", ["aca_rect", "dlt", "ge", "ndlt"])
+def test_heads_on_cuda_match_cpu(dev, method):
+    """Each head's H and its gradient to the offsets (B = 64) on the card
+    against the CPU: float64 within 1e-9 of the largest entry, float32
+    within 1e-4."""
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 1e-4)):
+        args = _head_inputs(dev, dtype)
+        h_g, g_g = _head_grad(method, *args)
+        h_c, g_c = _head_grad(method, *(x.cpu() for x in args))
+        assert h_g.device == dev and torch.isfinite(g_g).all()
+        assert _gap(h_g, h_c) <= tol
+        assert _gap(g_g, g_c) <= tol
+
+
+# One train step on the card against the CPU, over the CPU's norm (as
+# chip_smoke.py's models phase holds them): ~10x the largest readings on an
+# H100 from a fresh Adam, gradients 1.7e-6 (CNN) and 8.0e-7 (IHN), updates
+# 4.7e-4 and 2.3e-5.
+STEP_GRAD_TOL = 2e-5
+STEP_UPDATE_TOL = 5e-3
+
+
+def _models_on(dev):
+    from sks_tpu_torch import models as M
+
+    cnn, cnn_state = M.create_train_state(
+        torch.Generator(device=dev).manual_seed(1), device=dev)
+    ihn, ihn_state = M.create_ihn_state(
+        torch.Generator(device=dev).manual_seed(2), device=dev)
+    return ((cnn, cnn_state, M.HomographyNet(), M.train_step),
+            (ihn, ihn_state, M.IterativeHomographyNet(), M.ihn_train_step))
+
+
+def test_models_forward_on_cuda_match_cpu(dev):
+    """HomographyNet and the IHN at full width (64 x 64, B = 16, dim 64, 6
+    iterations) on the card against the same weights on the CPU: offsets
+    within 1e-5 of the largest (TF32 convs round to 10 mantissa bits,
+    ~1e-3)."""
+    from sks_tpu_torch.models.deep_homography import synth_training_batch
+
+    pair, _ = synth_training_batch(
+        torch.Generator(device=dev).manual_seed(3), 16)
+    for model, _, twin, _ in _models_on(dev):
+        twin.load_state_dict({k: v.cpu() for k, v in
+                              model.state_dict().items()})
+        with torch.no_grad():
+            got, want = model(pair), twin(pair.cpu())
+        assert got.device == dev and torch.isfinite(got).all()
+        assert _gap(got, want) <= 1e-5
+
+
+def _norm_gap(a, b):
+    """Distance over the norm of ``b``."""
+    b = b.double()
+    return ((a.cpu().double() - b).norm() / b.norm()).item()
+
+
+def test_train_steps_on_cuda_match_cpu_without_host_sync(dev):
+    """One train step of each model on the card, after a warm-up step, under
+    ``set_sync_debug_mode("error")`` (nothing reads the card: the loss stays
+    a 0-d tensor), against the same step on the CPU from the same weights
+    and Adam state: the loss within 1e-4 relative; each parameter's
+    gradient and its update (after minus before), card against CPU, within
+    STEP_GRAD_TOL and STEP_UPDATE_TOL of the CPU's norm of it (a skipped
+    step is 1 away, a reversed one 2)."""
+    from sks_tpu_torch.models.deep_homography import (
+        TrainState,
+        synth_training_batch,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    warm = synth_training_batch(g, 16)
+    pair, off = synth_training_batch(g, 16)
+    for model, state, twin, step in _models_on(dev):
+        step(model, state, *warm)
+        twin.load_state_dict({k: v.cpu() for k, v in
+                              model.state_dict().items()})
+        twin_state = TrainState.create(twin)
+        # A copy: Adam's step count lives on the host, and a loaded
+        # state would share it with the card's.
+        twin_state.optimizer.load_state_dict(
+            copy.deepcopy(state.optimizer.state_dict()))
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, loss = step(model, state, pair, off)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _, want = step(twin, twin_state, pair.cpu(), off.cpu())
+        assert loss.dim() == 0 and loss.device == dev
+        assert abs(loss.item() - want.item()) <= 1e-4 * want.item()
+        for (name, p), q, p0 in zip(model.named_parameters(),
+                                    twin.parameters(), before):
+            assert _norm_gap(p.grad, q.grad) <= STEP_GRAD_TOL, name
+            assert _norm_gap(p.detach() - p0,
+                             q.detach() - p0.cpu()) <= STEP_UPDATE_TOL, name

@@ -242,8 +242,9 @@ def test_trace_split_reads_the_stage_ranges(seq, fused):
 def test_trace_split_assigns_device_time_to_stages():
     """Device events of a made-up trace: a kernel goes to the stage of the
     operation that launched it, a kernel no operation launched (K2, through
-    ``ctypes``) to the stage whose device-side copy holds it; those copies
-    are not device work."""
+    ``ctypes``) to the stage whose device-side copy holds it; those copies,
+    and the device-side copy of any other host range (Adam's step), are not
+    device work."""
     from sks_tpu_torch.bench.pipeline_fps import trace_split
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -271,6 +272,8 @@ def test_trace_split_assigns_device_time_to_stages():
         Evt("aca_solve_score_kernel", 31 * ms, 34 * ms, cuda, linked=99),
         Evt("sum_chunks_kernel", 34 * ms, 35 * ms, cuda, linked=99),
         Evt("memset", 36 * ms, 40 * ms, cuda),
+        Evt("Optimizer.step#Adam.step", 36 * ms, 37 * ms, cpu, cid=4),
+        Evt("Optimizer.step#Adam.step", 36 * ms, 40 * ms, cuda),
     ]
     split = trace_split(events)
     assert split["stages_host_ms"] == {"vo/describe": 10.0, "ransac/k2": 10.0}
@@ -279,6 +282,9 @@ def test_trace_split_assigns_device_time_to_stages():
     assert split["device_kernels"] == 4
     assert split["busy_ms"] == 10.0 and split["span_ms"] == 40.0
     assert split["idle_share"] == 0.75
+    assert split["top_kernels_ms"] == [
+        ("memset", 4.0), ("aca_solve_score_kernel", 3.0),
+        ("conv_kernel", 2.0), ("sum_chunks_kernel", 1.0)]
 
 
 def test_esm_polish_raises_until_it_is_ported(seq, jmatches):
