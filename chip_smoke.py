@@ -38,6 +38,15 @@ at full width, the four solver heads' H and gradients and both networks'
 forwards on the card against the CPU, each network trained 300 steps with
 its held-out MACE before and after; no kernel of the repo launches there.
 
+A fifth, counters reset again (``launches_real``): the headline
+(``sks_tpu_torch/bench/headline.py``: K1's homographies/s at B = 2^20 and
+6 x 2^20, float32 and bfloat16 storage, each rate's share of the card's
+memory bandwidth), the image-grounded benchmark
+(``sks_tpu_torch/bench/real_pipeline.py``: rendered pairs scored against
+their true H, a VO sequence's ATE, loop closures, one fit against the CPU;
+K2 once a fit) and ``sks_tpu_torch/bench/wall_real.py`` on the synthetic
+wall fixture (the reference's real matches are not in the repository).
+
 It also times the ablation instances of the NDLT and HO kernels
 (``sks_tpu_torch/bench/ndlt_ablation.py``, ``ho_ablation.py``), holds the
 Jacobi rotation's hand-written square root and reciprocal against the IEEE
@@ -47,7 +56,8 @@ the dominant step of NDLT, HO and GPT.
 
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
-launches on the main path, the adaptive path and the pipeline, error against
+launches on the main path, the adaptive path, the pipeline and the real paths,
+error against
 its plain version, times and bound
 (``sks_tpu_torch/bench/roofline.py``); and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
@@ -281,6 +291,151 @@ def models_phase(torch, dev, check) -> dict:
               f"models: {name} {row}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+# The image-grounded phases (``real_paths``): the largest ground-truth corner
+# error of an easy pair (the absolute ceiling of the JAX package's gate,
+# tests/test_photo_pipeline.py), the bandwidth fraction above which a
+# headline reading is a timing fault, and the synthetic fixture's true
+# inliers (sks_tpu_torch/data/fixture.py: 2,000 matches, 15% outliers).
+EASY_CORNER_ERR_PX = 1.5
+MAX_BANDWIDTH_FRACTION = 1.05
+FIXTURE_TRUE_INLIERS = 1700
+
+
+def real_paths(torch, dev, check, smi, emit) -> dict:
+    """The headline, the image-grounded benchmark and the wall fixture on the
+    card; returns each kernel's launches across the three phases.
+
+    ``headline``: ``bench/headline.py`` (K1 at B = 2^20 and 6 x 2^20, float32
+    and bfloat16 storage, device time); every bandwidth fraction at most
+    MAX_BANDWIDTH_FRACTION of the card's spec.  ``real_pipeline``
+    (``bench/real_pipeline.py`` at its own shapes): ``pair_parity`` on 8 easy
+    and 4 parallax pairs at (480, 640), every scored easy pair under
+    EASY_CORNER_ERR_PX against the true H; ``sequence_ate`` on 12 frames
+    under 0.12 x the path length + 0.02; ``loop_closure_ate`` on 16 frames,
+    closures under 0.95 x the raw chain's ATE; one pair's fit on the card
+    (fused, K2) against the same matches and minimal sets on the CPU (the
+    general path): the same inliers, H within 1e-4 after Frobenius
+    normalization; K2 launched once a fit.  ``wall_real_synth``:
+    ``bench/wall_real.py`` on the synthetic fixture: float64 medians under
+    1e-6 px, finite fractions at least 0.99, and ``robust_parity``'s inliers
+    within 5% of the fixture's true ones.
+    """
+    from sks_tpu_torch.bench import headline, real_pipeline, wall_real
+    from sks_tpu_torch.data.fixture import load_correspondences
+    from sks_tpu_torch.data.images import planar_pair
+    from sks_tpu_torch.features.matching import match_frames_oriented
+    from sks_tpu_torch.geom.homography import normalize_h
+    from sks_tpu_torch.kernels import LAUNCHES
+    from sks_tpu_torch.robust import find_homography
+    from sks_tpu_torch.robust.ransac import RansacConfig, _sample_chunk
+    from sks_tpu_torch.utils.streams import pair_generators
+
+    torch.cuda.synchronize()
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    seen = dict(LAUNCHES)
+
+    def made():
+        out = {k: LAUNCHES[k] - seen[k] for k in LAUNCHES
+               if LAUNCHES[k] != seen[k]}
+        seen.update(LAUNCHES)
+        return out
+
+    # ---- headline ----
+    t0 = time.perf_counter()
+    head = headline.run()
+    fractions = {k: v for k, v in head.items()
+                 if k.startswith("roofline_fraction")}
+    check(math.isfinite(head["value"]) and head["value"] > 0
+          and head["hbm_spec_gbps"] is not None and len(fractions) == 3,
+          f"headline: {head}")
+    check(all(v <= MAX_BANDWIDTH_FRACTION for v in fractions.values()),
+          f"headline: a bandwidth fraction above {MAX_BANDWIDTH_FRACTION} of "
+          f"the spec is a timing fault: {fractions}")
+    emit("headline", card=smi, seconds=time.perf_counter() - t0,
+         launches=made(), **head)
+
+    # ---- real_pipeline ----
+    t0 = time.perf_counter()
+    easy = real_pipeline.pair_parity(0, 8, device=dev)
+    parallax = real_pipeline.pair_parity(0, 4, protocol="parallax",
+                                         device=dev)
+    fits = sum(1 for r in easy + parallax if "skipped" not in r)
+    seq = real_pipeline.sequence_ate(0, 12, device=dev)
+    loop = real_pipeline.loop_closure_ate(0, 16, device=dev)
+    # One easy pair, card against CPU on the same matches and draws.
+    g_render = pair_generators(1, 1, device=dev)[0]
+    img1, img2, _ = planar_pair(g_render, (480, 640))
+    p1, p2, valid, _ = match_frames_oriented(img1, img2, 512, 3)
+    center = torch.tensor([320.0, 240.0], device=dev)
+    p1 = torch.where(valid[..., None], p1, center)
+    p2 = torch.where(valid[..., None], p2, center)
+    idx = _sample_chunk(torch.Generator(device=dev).manual_seed(3),
+                        p1.shape[0], RansacConfig(num_hypotheses=2048), None,
+                        valid)
+    h_card, m_card = find_homography(p1, p2, point_mask=valid, indices=idx,
+                                     max_iters=2048)
+    h_cpu, m_cpu = find_homography(p1.cpu(), p2.cpu(),
+                                   point_mask=valid.cpu(), indices=idx.cpu(),
+                                   max_iters=2048)
+    card_vs_cpu = {
+        "matches": int(valid.sum()),
+        "inliers_card": int(m_card.sum()), "inliers_cpu": int(m_cpu.sum()),
+        "same_mask": torch.equal(m_card.cpu(), m_cpu),
+        "h_max_fro_diff": (normalize_h(h_card.cpu(), "fro")
+                           - normalize_h(h_cpu, "fro")).abs().max().item(),
+        "bound": 1e-4}
+    launches = made()
+    summary = {"easy": real_pipeline._summarize(easy),
+               "parallax": real_pipeline._summarize(parallax)}
+    rp = {"seconds": time.perf_counter() - t0, "launches": launches,
+          "easy": easy, "parallax": parallax, "summary": summary,
+          "sequence": seq, "loop_closure": loop, "card_vs_cpu": card_vs_cpu}
+    scored = [r for r in easy if "skipped" not in r]
+    check(len(scored) >= 6 and all(r["corner_err_ours_px"] < EASY_CORNER_ERR_PX
+                                   for r in scored),
+          f"real_pipeline: easy pairs' corner error: {summary['easy']}")
+    check(all(math.isfinite(r["corner_err_ours_px"])
+              and "offplane_inlier_leak_ours" in r
+              for r in parallax if "skipped" not in r),
+          f"real_pipeline: parallax rows: {parallax}")
+    check(seq["ate_rmse"] < 0.12 * seq["path_length"] + 0.02,
+          f"real_pipeline: sequence ATE: {seq}")
+    check(loop["ate_smooth_with_closures"] < 0.95 * loop["ate_odometry"],
+          f"real_pipeline: closures must cut the ATE: {loop}")
+    check(card_vs_cpu["same_mask"]
+          and card_vs_cpu["inliers_card"] == card_vs_cpu["inliers_cpu"]
+          and card_vs_cpu["h_max_fro_diff"] <= 1e-4,
+          f"real_pipeline: card vs CPU: {card_vs_cpu}")
+    # K2 once a pair fit, once a sequence_ate, 1 + 1 + 2 in
+    # loop_closure_ate, once the card-versus-CPU fit; nothing else.
+    check(launches == {"aca_solve_score": fits + 1 + 4 + 1},
+          f"real_pipeline launches: {launches}, {fits} pair fits")
+    emit("real_pipeline", card=smi, **rp)
+
+    # ---- wall_real_synth: the synthetic fixture, not the real matches ----
+    t0 = time.perf_counter()
+    wsrc, wtar = load_correspondences()
+    acc = wall_real.solver_accuracy(wsrc, wtar, device=dev)
+    thr = wall_real.throughput_real(wsrc, wtar, device=dev)
+    par = wall_real.robust_parity(wsrc, wtar, device=dev)
+    launches = made()
+    check(all(row["f64_median_px"] < 1e-6 and row["finite_frac"] >= 0.99
+              and row["f64_finite_frac"] >= 0.99 for row in acc.values()),
+          f"wall_real_synth: solver accuracy: {acc}")
+    check(abs(par["inliers_ours"] - FIXTURE_TRUE_INLIERS)
+          <= 0.05 * FIXTURE_TRUE_INLIERS,
+          f"wall_real_synth: robust parity: {par}")
+    check(math.isfinite(thr["h_per_s"]) and launches.get("aca_solve", 0) >= 1
+          and launches.get("aca_solve_score") == 1,
+          f"wall_real_synth: {thr}, launches {launches}")
+    emit("wall_real_synth", card=smi, data="synthetic fixture "
+         "sks_tpu_torch/data/wall_synth.txt (GT_H, 15% outliers)",
+         seconds=time.perf_counter() - t0, launches=launches,
+         solver_accuracy=acc, throughput_real=thr, robust_parity=par)
+    return dict(LAUNCHES)
 
 
 def main() -> int:
@@ -1230,6 +1385,8 @@ def main() -> int:
 
     # Pairs/s in device and host time, the stage split, launches and the
     # device's idle share (bench/pipeline_fps.py); its launches are its own.
+    # One timed call a row, none untimed: the pipeline phase above built
+    # every kernel and ran each entry point at these shapes.
     fps = pipeline_fps.run(runs=1)
     emit("pipeline_fps", **fps)
     for trace, extra in ((fps["trace"], ()),
@@ -1240,6 +1397,13 @@ def main() -> int:
               and trace["busy_ms"] and "ransac/k2" in trace["stages_device_ms"],
               f"the traced {trace['entry']} call: stages and device time "
               f"{ {k: trace[k] for k in ('stages_host_ms', 'stages_device_ms', 'busy_ms')} }")
+
+    # ---- 5h. the headline, the image-grounded benchmark, the wall fixture --
+    # Counters at 0 before the three phases, read after (launches_real).
+    launches_real = real_paths(torch, dev, check, smi, emit)
+    check(launches_real["aca_solve"] >= 1
+          and launches_real["aca_solve_score"] >= 1,
+          f"the real paths must launch K1 and K2: {launches_real}")
 
     # ---- 6. port consistency: CUDA paths == the general path on the CPU ----
     # Same minimal sets (indices=) on both sides; the same mask, and H within
@@ -1622,13 +1786,15 @@ def main() -> int:
     # whole (the yardsticks above time a dominant step, not the function).
     # launches: the main path's; launches_adaptive: the adaptive path's;
     # launches_pipeline: the VO pipeline's (frames_to_poses fused and
-    # general, planar_slam raw and smoothed).  Each path was driven with the
+    # general, planar_slam raw and smoothed); launches_real: the headline's,
+    # the image-grounded benchmark's and the wall fixture's.  Each path was driven with the
     # counts set to 0 just before it.
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name],
          "launches_adaptive": launches_adaptive[name],
          "launches_pipeline": launches_pipeline[name],
+         "launches_real": launches_real[name],
          "max_abs_err": errors[name],
          "ms": timed[name][0], "plain_ms": timed[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],

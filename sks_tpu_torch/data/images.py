@@ -11,13 +11,16 @@ program renders its frames without JAX (their pixels differ from the JAX
 package's for the same seed; the poses do not depend on the draw).
 Nothing is stored on disk.
 
-``photo_texture`` and ``available_photos`` (real photographs shipped in
-other packages, loaded with PIL) are not ported yet (ROADMAP.md).
+``photo_texture`` renders a real photograph as the plane instead: one of
+the sample photographs that matplotlib and scikit-learn ship, read with
+PIL where those packages are installed (``available_photos`` lists them;
+on a machine without them it is empty and ``photo_texture`` returns None).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +32,8 @@ from sks_tpu_torch.utils.synth import random_rotation
 
 __all__ = [
     "plane_texture",
+    "photo_texture",
+    "available_photos",
     "resize_linear",
     "warp_image",
     "photometric_jitter",
@@ -47,9 +52,98 @@ def _uniform(generator, shape, dtype, lo, hi) -> Tensor:
 
 def resize_linear(img: Tensor, shape: tuple) -> Tensor:
     """Linear resize of (H, W) to ``shape`` with half-pixel centers: what
-    ``jax.image.resize(img, shape, 'linear')`` computes when upsampling."""
-    return F.interpolate(img[None, None], size=tuple(shape), mode="bilinear",
-                         align_corners=False, antialias=False)[0, 0]
+    ``jax.image.resize(img, shape, 'linear')`` computes.
+
+    Like JAX, it antialiases along an axis that shrinks (the triangle
+    kernel widened by the scale) and not along one that grows.  Where no
+    axis shrinks it is one bilinear interpolation, as before.
+    """
+    h, w = img.shape[-2:]
+    th, tw = shape
+    x = img[None, None]
+    if th >= h and tw >= w:
+        return F.interpolate(x, size=(th, tw), mode="bilinear",
+                             align_corners=False)[0, 0]
+    # An axis shrinks: one pass an axis, each under its own rule.
+    x = F.interpolate(x, size=(th, w), mode="bilinear", align_corners=False,
+                      antialias=th < h)
+    return F.interpolate(x, size=(th, tw), mode="bilinear",
+                         align_corners=False, antialias=tw < w)[0, 0]
+
+
+#: Sample photographs shipped inside other packages: name -> (package, path
+#: inside it).  A portrait (512 x 600), close-up flora and urban architecture
+#: (427 x 640 each), all RGB.
+_PHOTO_CANDIDATES = {
+    "hopper": ("matplotlib", "mpl-data/sample_data/grace_hopper.jpg"),
+    "flower": ("sklearn", "datasets/images/flower.jpg"),
+    "china": ("sklearn", "datasets/images/china.jpg"),
+}
+
+
+def _photo_path(name: str) -> str | None:
+    """The file of photograph ``name``, or None where its package is absent."""
+    import importlib.util
+
+    if name not in _PHOTO_CANDIDATES:
+        raise ValueError(
+            f"unknown photo {name!r}; candidates: {sorted(_PHOTO_CANDIDATES)}")
+    pkg, rel = _PHOTO_CANDIDATES[name]
+    # The package's directory, found without importing it.
+    spec = importlib.util.find_spec(pkg)
+    if spec is None or not spec.submodule_search_locations:
+        return None
+    path = os.path.join(list(spec.submodule_search_locations)[0], rel)
+    return path if os.path.isfile(path) else None
+
+
+def _has_pil() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("PIL") is not None
+
+
+def available_photos() -> tuple:
+    """Names of the photographs that can be loaded here (PIL and the file
+    both present)."""
+    if not _has_pil():
+        return ()
+    return tuple(name for name in _PHOTO_CANDIDATES
+                 if _photo_path(name) is not None)
+
+
+def photo_texture(shape: tuple = (480, 640), dtype=torch.float32,
+                  name: str = "hopper", device="cuda") -> Tensor | None:
+    """A real photograph as a [0, 1] grayscale plane texture, or None.
+
+    Loads the named photograph (``_PHOTO_CANDIDATES``) with PIL, converts it
+    to luminance, crops its center to the aspect ratio of ``shape`` (no
+    anisotropic stretch) and resizes it to ``shape`` with
+    :func:`resize_linear` on ``device``, as the JAX package does.  Returns
+    None when PIL or the photograph is missing, so that callers can fall back
+    to :func:`plane_texture`.
+    """
+    path = _photo_path(name)
+    if path is None or not _has_pil():
+        return None
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(path) as im:
+        lum = np.array(im.convert("L"))
+    arr = torch.from_numpy(lum).to(device=device, dtype=dtype) / 255.0
+    h0, w0 = arr.shape
+    th, tw = shape
+    if h0 * tw > w0 * th:  # too tall: crop rows
+        keep = max(1, (w0 * th) // tw)
+        off = (h0 - keep) // 2
+        arr = arr[off:off + keep, :]
+    elif h0 * tw < w0 * th:  # too wide: crop columns
+        keep = max(1, (h0 * tw) // th)
+        off = (w0 - keep) // 2
+        arr = arr[:, off:off + keep]
+    # The linear kernel can overshoot [0, 1] by an ulp at the crop's edges.
+    return torch.clamp(resize_linear(arr, shape), 0.0, 1.0)
 
 
 def plane_texture(generator: torch.Generator, shape: tuple = (480, 640),

@@ -71,6 +71,8 @@ def find_homography(
     sampling: str = "uniform",
     point_mask: Tensor | None = None,
     bf16_hypotheses: bool = False,
+    *,
+    indices: Tensor | None = None,
 ):
     """Robustly fit H mapping src -> tar (the ``cv2.findHomography`` shape).
 
@@ -105,6 +107,10 @@ def find_homography(
         sorted by descending match quality).  Composes with the fused path.
       point_mask: optional (..., N) bool validity for padded point sets.
       bf16_hypotheses: store minimal sets in bfloat16 on the fused path.
+      indices: optional minimal sets in place of the draws (the parity
+        seam): ``(..., B, 4)`` integer indices with B the hypotheses of one
+        fit (``max_iters``, rounded up to a multiple of 128 on the fused
+        path); with ``confidence``, the whole schedule's draws.
 
     On float32 or bfloat16 CUDA tensors, eligible fits (method 'ransac' /
     'msac' / 'magsac', solver 'aca', no ``confidence``) take the fused
@@ -154,20 +160,24 @@ def find_homography(
                       max_chunks=-(-max_iters // chunk))
 
     if src.dim() == 2:
-        res = fit(generator, src, tar, config, point_mask=point_mask)
+        res = fit(generator, src, tar, config, point_mask=point_mask,
+                  indices=indices)
         return res.h, res.inlier_mask
 
     bshape, n = src.shape[:-2], src.shape[-2]
     srcf = src.reshape(-1, n, 2)
     tarf = tar.reshape(-1, n, 2)
     pmf = None if point_mask is None else point_mask.reshape(-1, n)
+    idxf = (None if indices is None
+            else indices.reshape(-1, *indices.shape[-2:]))
     if fused and confidence is None:
         results = ransac_homography_fused_batch(generator, srcf, tarf, config,
-                                                pmf)
+                                                pmf, indices=idxf)
     else:
         results = [
             fit(generator, srcf[i], tarf[i], config,
-                point_mask=None if pmf is None else pmf[i])
+                point_mask=None if pmf is None else pmf[i],
+                indices=None if idxf is None else idxf[i])
             for i in range(srcf.shape[0])
         ]
     h = torch.stack([r.h for r in results]).reshape(*bshape, 3, 3)

@@ -1,1 +1,2 @@
-"""Utilities: synthetic correspondences and carry-across helpers."""
+"""Utilities: synthetic correspondences, carry-across helpers, per-pair
+random streams, numeric-health checks, operation counts and profiling."""

@@ -15,6 +15,9 @@ package's benchmark configuration on 6 frames rendered at (240, 320): one K2
 launch a fused batch, the card against the CPU, and no host sync; with the
 dense ESM polish too (``planar_slam``'s default), and the batched polish of
 5 pairs against the CPU.  Bundle adjustment in float64 against the CPU.
+The image-grounded benchmark (``bench/real_pipeline.py``): K2 once a pair
+fit and once a ``sequence_ate``; the headline's fields, every bandwidth
+fraction at most 1.05 of the card's spec.
 """
 
 import copy
@@ -854,3 +857,50 @@ def test_train_steps_on_cuda_match_cpu_without_host_sync(dev):
             assert _norm_gap(p.grad, q.grad) <= STEP_GRAD_TOL, name
             assert _norm_gap(p.detach() - p0,
                              q.detach() - p0.cpu()) <= STEP_UPDATE_TOL, name
+
+
+# ---- the image-grounded benchmark and the headline --------------------------
+
+
+def test_pair_parity_launches_k2_once_a_pair(dev):
+    """``bench.real_pipeline.pair_parity`` on the card: each pair's fit takes
+    the fused route (one K2 launch), and its corner error against the true
+    H is under the JAX package's 1.5 px ceiling on the easy protocol."""
+    from sks_tpu_torch.bench import real_pipeline
+
+    before = dict(K.LAUNCHES)
+    rows = real_pipeline.pair_parity(0, 2, device=dev)
+    torch.cuda.synchronize()
+    made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+            if K.LAUNCHES[k] != before[k]}
+    scored = [r for r in rows if "skipped" not in r]
+    assert made == {"aca_solve_score": len(scored)}, made
+    assert scored and all(r["corner_err_ours_px"] < 1.5 for r in scored), rows
+
+
+def test_sequence_ate_launches_k2_once_for_all_pairs(dev):
+    from sks_tpu_torch.bench import real_pipeline
+
+    before = K.LAUNCHES["aca_solve_score"]
+    out = real_pipeline.sequence_ate(0, 6, device=dev)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["aca_solve_score"] == before + 1
+    assert out["ate_rmse"] < 0.12 * out["path_length"] + 0.02, out
+
+
+def test_headline_fields(dev):
+    from sks_tpu_torch.bench import headline
+
+    out = headline.run()
+    assert out["metric"] == "aca_homographies_per_sec_per_chip"
+    assert out["unit"] == "H/s" and out["value"] > 0
+    assert out["device_kind"] == torch.cuda.get_device_name(0)
+    assert out["vs_baseline"] == out["value"] / headline.BASELINE_H_PER_S
+    spec = headline.HBM_SPEC_GBPS.get(out["device_kind"])
+    assert out["hbm_spec_gbps"] == spec
+    for suffix in ("", "_b6m", "_b6m_bf16"):
+        assert out[f"effective_gbps{suffix}"] > 0
+        if spec:
+            assert 0 < out[f"roofline_fraction{suffix}"] <= 1.05, out
+        else:
+            assert f"roofline_fraction{suffix}" not in out
