@@ -38,6 +38,15 @@ at full width, the four solver heads' H and gradients and both networks'
 forwards on the card against the CPU, each network trained 300 steps with
 its held-out MACE before and after; no kernel of the repo launches there.
 
+Then the multi-device layer (``sks_tpu_torch.parallel``), counters reset
+again (``launches_sharded``): a world-size-1 NCCL group on the card, every
+sharded form (RANSAC general and fused, NDLT, HO, a BA step, the pose
+graph, ``sharded_frames_to_poses``, ``sharded_planar_slam``) against its
+single-device form, each K2 launch against its plain version,
+``bench/ba_scale.py`` at 20 x 10,240, and, where gloo takes CUDA tensors,
+``sharded_frames_to_poses`` at world size 2 on the one card (two processes
+of this script, ``--gloo-rank``) against world size 1.
+
 A fifth, counters reset again (``launches_real``): the headline
 (``sks_tpu_torch/bench/headline.py``: K1's homographies/s at B = 2^20 and
 6 x 2^20, float32 and bfloat16 storage, each rate's share of the card's
@@ -56,7 +65,8 @@ the dominant step of NDLT, HO and GPT.
 
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
-launches on the main path, the adaptive path, the pipeline and the real paths,
+launches on the main path, the adaptive path, the pipeline, the sharded
+phase and the real paths,
 error against
 its plain version, times and bound
 (``sks_tpu_torch/bench/roofline.py``); and last
@@ -436,6 +446,303 @@ def real_paths(torch, dev, check, smi, emit) -> dict:
          seconds=time.perf_counter() - t0, launches=launches,
          solver_accuracy=acc, throughput_real=thr, robust_parity=par)
     return dict(LAUNCHES)
+
+
+# The sharded phase's bounds against the single-device forms on the card.
+# RANSAC, frames_to_poses: the same fits (same streams, same launches per
+# pair).  NDLT / HO: the single forms sum in another order (HO's eigensolver
+# is the closed form there, Jacobi here).  BA: float64, the 1e12 gauge
+# carries a reordered sum to ~1e-8 of the largest entry
+# (tests/test_torch_parallel.py).  Pose graph: the CG bound of
+# tests/test_torch_posegraph.py.  planar_slam: its one batch of every pair
+# polishes in one ESM batch (the single form: two), which the card sums in
+# another order (the esm phase's batch-vs-single gap): the pipeline's
+# card-vs-CPU bound.
+SHARDED_REFINE_TOL = 1e-5
+SHARDED_BA_TOL = 1e-7
+SHARDED_PG_TOL = 1e-4
+SHARDED_F2P_TOL = 1e-5
+SHARDED_SLAM_TOL = 5e-3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ring_graph(torch, dev, n=32, drift=0.05):
+    """An odometry ring of n poses with the loop closed, its initial poses
+    drifted by noisy odometry (float64, on the card)."""
+    from sks_tpu_torch.geom.lie import se3_exp
+    from sks_tpu_torch.slam.posegraph import PoseGraph, _inv_se3
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    ang = torch.arange(n, dtype=torch.float64, device=dev) * (2 * math.pi / n)
+    z = torch.zeros_like(ang)
+    gt = se3_exp(torch.stack([ang.cos(), ang.sin(), z, z, z, ang], -1))
+    edges = torch.stack([torch.arange(n, device=dev),
+                         torch.arange(n, device=dev).roll(-1)], -1)
+    meas = _inv_se3(gt[edges[:, 0]]) @ gt[edges[:, 1]]
+    noise = se3_exp(torch.randn((n, 6), generator=g, dtype=torch.float64,
+                                device=dev) * drift)
+    poses = [gt[0]]
+    for i in range(1, n):
+        poses.append(poses[-1] @ meas[i - 1] @ noise[i])
+    return PoseGraph(torch.stack(poses), edges, meas,
+                     torch.ones(n, dtype=torch.float64, device=dev))
+
+
+def gloo_rank(rank: int, port: int) -> int:
+    """One rank of the two-rank gloo group on the one card: the fused
+    ``sharded_frames_to_poses`` of the sharded phase's world-2 check; rank 0
+    prints its result as JSON."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    os.environ["LOCAL_RANK"] = str(rank)
+    from sks_tpu_torch.bench import pipeline_fps
+    from sks_tpu_torch.data.images import planar_sequence
+    from sks_tpu_torch.parallel import initialize_multihost, make_mesh
+    from sks_tpu_torch.slam.pipeline import sharded_frames_to_poses
+
+    initialize_multihost(f"localhost:{port}", 2, rank, "cuda", backend="gloo",
+                         timeout=120)
+    dev = torch.device("cuda", 0)
+    frames, _, k_mat = planar_sequence(
+        torch.Generator(device=dev).manual_seed(16), 16, (240, 320))
+    out = sharded_frames_to_poses(
+        make_mesh({"frame": -1}), torch.Generator(device=dev).manual_seed(5),
+        frames[:15], k_mat, pipeline_fps.config(True), num_corners=384,
+        num_octaves=2, plane_depth=3.0)
+    if rank == 0:
+        print(json.dumps({k: v.tolist() for k, v in out.items()}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_phase(torch, dev, check, smi, emit, vo_runs, ransac_problem,
+                  seq_gen, cfg_fused, vo_kw):
+    """The multi-device layer (``sks_tpu_torch.parallel``) on a world-size-1
+    NCCL group on the card; returns (each kernel's launches, K2's largest
+    gap to its plain version on the phase's launches).
+
+    With the counters at 0, every sharded form once: RANSAC (ACA, N = 2,000,
+    50% outliers, 2,048 hypotheses; general, through K1, and fused, K2);
+    NDLT and HO on the same matches, weighted by the true inliers; one BA
+    step at 20 x 10,240 in float64; the pose graph of a 32-pose ring;
+    ``sharded_frames_to_poses`` at T = 16, (240, 320), fused (one K2
+    launch); ``sharded_planar_slam`` with its default ESM polish (one K2
+    launch for the consecutive and closure pairs); ``bench/ba_scale.run()``
+    in float64 (held: converged, RMS < 0.6 px) and float32 (reported).  Then
+    each against its single-device form on the card (the pipeline phase's
+    runs of ``frames_to_poses`` and ``planar_slam`` on the same frames and
+    generators), and each K2 launch replayed against its plain version
+    (inliers bit-equal).  Last, whether gloo takes CUDA tensors; if it does,
+    the fused ``sharded_frames_to_poses`` on 15 frames at world size 2 (two
+    processes on the one card) against world size 1.
+    """
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from sks_tpu_torch.bench import ba_scale
+    from sks_tpu_torch.geom.homography import normalize_h
+    from sks_tpu_torch.kernels import aca_cuda as K
+    from sks_tpu_torch.ops.ho import ho_h
+    from sks_tpu_torch.ops.ndlt import ndlt_h
+    from sks_tpu_torch.parallel import (
+        initialize_multihost,
+        make_mesh,
+        shard_graph,
+        sharded_ho_h,
+        sharded_ndlt_h,
+        sharded_optimize_posegraph,
+        sharded_ransac_homography,
+    )
+    from sks_tpu_torch.parallel import sharded_ransac as SR
+    from sks_tpu_torch.parallel.sharded_ba import (
+        gather_problem,
+        shard_problem,
+        sharded_gauss_newton_step,
+    )
+    from sks_tpu_torch.robust import ransac as R
+    from sks_tpu_torch.robust.ransac import (
+        RansacConfig,
+        ransac_homography,
+        sample_minimal_sets,
+    )
+    from sks_tpu_torch.slam.ba import gauss_newton_step, synth_ba_problem
+    from sks_tpu_torch.slam.pipeline import (
+        sharded_frames_to_poses,
+        sharded_planar_slam,
+    )
+    from sks_tpu_torch.slam.posegraph import optimize_posegraph
+    from sks_tpu_torch.utils.streams import pair_generators
+
+    def fro(h):
+        return normalize_h(h.double(), "fro")
+
+    initialize_multihost(f"localhost:{free_port()}", 1, 0, "cuda",
+                         timeout=300)
+    row = {"backend": dist.get_backend(), "world_size": dist.get_world_size()}
+    check(row == {"backend": "nccl", "world_size": 1},
+          f"sharded: the group is not NCCL at world size 1: {row}")
+    k2_launched, wrappers = [], (R.aca_solve_score_soa, SR.aca_solve_score_soa)
+
+    def k2_recorded(*args, **kwargs):
+        k2_launched.append((args, kwargs))
+        return wrappers[0](*args, **kwargs)
+
+    src, tar, _, true_inl = ransac_problem
+    w_inl = true_inl.float()
+    cfg = RansacConfig(num_hypotheses=2048, threshold=3.0)
+    _, ba_init = synth_ba_problem(torch.Generator(device=dev).manual_seed(0),
+                                  dtype=torch.float64)
+    graph = ring_graph(torch, dev)
+    frames_s, frames_c = vo_runs["fused"][0], vo_runs["planar_slam_esm"][0]
+    try:
+        torch.cuda.synchronize()
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        R.aca_solve_score_soa = SR.aca_solve_score_soa = k2_recorded
+        t0 = time.perf_counter()
+        try:
+            hyp = make_mesh({"hyp": -1})
+            fits = {route: sharded_ransac_homography(
+                hyp, 11, src, tar, cfg, fused=route == "fused")
+                for route in ("general", "fused")}
+            pts = make_mesh({"pts": -1})
+            refine = {"ndlt": sharded_ndlt_h(pts, src, tar, w_inl),
+                      "ho": sharded_ho_h(pts, src, tar, w_inl)}
+            lm = make_mesh({"lm": -1})
+            ba_step = gather_problem(sharded_gauss_newton_step(
+                lm, shard_problem(ba_init, lm), 1e-4), lm)
+            edge = make_mesh({"edge": -1})
+            pg = sharded_optimize_posegraph(edge, shard_graph(graph, edge))
+            f2p = sharded_frames_to_poses(
+                make_mesh({"frame": -1}), seq_gen(5), frames_s[0],
+                frames_s[2], cfg_fused, **vo_kw)
+            slam = sharded_planar_slam(
+                make_mesh({"pair": -1}), seq_gen(6), frames_c[0],
+                frames_c[2], cfg_fused, strides=(4, 8), **vo_kw)
+            scale = {str(dt)[6:]: ba_scale.run(dtype=dt)
+                     for dt in (torch.float64, torch.float32)}
+            torch.cuda.synchronize()
+        finally:
+            R.aca_solve_score_soa, SR.aca_solve_score_soa = wrappers
+        row["seconds"] = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        row["launches"] = {k: v for k, v in launches.items() if v}
+        check(row["launches"] == {"aca_solve": 1, "aca_solve_score": 3},
+              f"sharded: K1 once (general RANSAC), K2 once for each of the "
+              f"fused RANSAC, frames_to_poses and planar_slam: {row}")
+
+        # Against the single-device forms on the card.
+        idx = sample_minimal_sets(pair_generators(11, 1, device=dev)[0],
+                                  src.shape[0], 2048)
+        for route, fit in fits.items():
+            one = ransac_homography(None, src, tar, dataclasses.replace(
+                cfg, fused=route == "fused"), indices=idx)
+            row[f"ransac_{route}"] = {
+                "num_inliers": int(fit.num_inliers),
+                "h_gap": (fro(fit.h) - fro(one.h)).abs().max().item(),
+                "masks_equal": torch.equal(fit.inlier_mask, one.inlier_mask)}
+            check(row[f"ransac_{route}"]["masks_equal"]
+                  and row[f"ransac_{route}"]["h_gap"] <= 1e-6,
+                  f"sharded RANSAC ({route}) against the single fit: {row}")
+        for name, one in (("ndlt", ndlt_h(src, tar, w_inl)),
+                          ("ho", ho_h(src, tar, w_inl))):
+            row[f"{name}_gap"] = (fro(refine[name]) - fro(one)).abs().max(
+            ).item()
+            check(row[f"{name}_gap"] <= SHARDED_REFINE_TOL,
+                  f"sharded {name} against the single form: {row}")
+        one = gauss_newton_step(ba_init, 1e-4)
+        for field in ("poses", "points"):
+            want = getattr(one, field)
+            row[f"ba_{field}_gap"] = ((getattr(ba_step, field) - want).abs()
+                                      .max() / want.abs().max()).item()
+            check(row[f"ba_{field}_gap"] <= SHARDED_BA_TOL,
+                  f"sharded BA step against the single step: {row}")
+        row["posegraph_gap"] = (pg.poses - optimize_posegraph(graph).poses
+                                ).abs().max().item()
+        check(row["posegraph_gap"] <= SHARDED_PG_TOL,
+              f"sharded pose graph against the single form: {row}")
+        for name, got, run_, tol in (
+                ("frames_to_poses", f2p, "fused", SHARDED_F2P_TOL),
+                ("planar_slam", slam, "planar_slam_esm", SHARDED_SLAM_TOL)):
+            want = vo_runs[run_][1]
+            gaps = {k: (got[k].long() - want[k].long()).abs().max().item()
+                    for k in ("num_inliers", "closure_inliers") if k in want}
+            row[name] = {"pose_gap": (got["poses"] - want["poses"]).abs()
+                         .max().item(), "num_inliers_gaps": gaps,
+                         "num_inliers": got["num_inliers"].tolist()}
+            exact = tol == SHARDED_F2P_TOL
+            check(row[name]["pose_gap"] <= tol
+                  and max(gaps.values()) <= (0 if exact else 2),
+                  f"sharded {name} against the single form: {row}")
+        row["ba_scale"] = scale
+        f64 = scale["float64"]
+        check(f64["converged"] and f64["rms_reprojection_px"][-1] < 0.6
+              and f64["devices"] == 1 and f64["points"] == 10_240,
+              f"ba_scale (float64) did not converge: {f64}")
+
+        # Each K2 launch of the phase, replayed against its plain version.
+        k2_err, replays = 0.0, []
+        for args, kwargs in k2_launched:
+            sk = K.aca_solve_score_soa(*args, **kwargs)
+            sp = K.aca_solve_score_soa_plain(*args, **kwargs)
+            gap = (sk - sp).abs().max().item()
+            k2_err = max(k2_err, gap)
+            replays.append({"shape": list(args[0].shape), "N": args[2].shape[-1],
+                            "equal": torch.equal(sk, sp), "max_abs_diff": gap})
+            check(torch.equal(sk, sp), f"K2 differs from plain on the sharded "
+                  f"phase's inputs: {replays}")
+        row["k2_replays"] = replays
+
+        # gloo on CUDA tensors: a separate check, never a fallback.
+        gl = dist.new_group(backend="gloo")
+        x = torch.arange(4.0, device=dev)
+        try:
+            dist.all_reduce(x, group=gl)
+            parts = [torch.empty_like(x)]
+            dist.all_gather(parts, x, group=gl)
+            row["gloo_cuda_tensors"] = True
+        except Exception as exc:  # reported: gloo refused CUDA tensors
+            row["gloo_cuda_tensors"] = repr(exc)[:300]
+        if row["gloo_cuda_tensors"] is True:
+            mesh1 = make_mesh({"frame": -1})
+            one = sharded_frames_to_poses(mesh1, seq_gen(5), frames_s[0][:15],
+                                          frames_s[2], cfg_fused, **vo_kw)
+            port, t1 = free_port(), time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gloo-rank",
+                 str(r), str(port)], stdout=subprocess.PIPE, text=True,
+                cwd=ROOT) for r in range(2)]
+            try:
+                outs = [p.communicate(timeout=240)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            check(all(p.returncode == 0 for p in procs),
+                  f"the world-2 gloo ranks failed: {[p.returncode for p in procs]}")
+            two = json.loads(outs[0].strip().splitlines()[-1])
+            row["world2_gloo"] = {
+                "seconds": time.perf_counter() - t1,
+                "num_inliers": two["num_inliers"],
+                "pose_gap": (torch.tensor(two["poses"], device=dev)
+                             - one["poses"]).abs().max().item()}
+            check(two["num_inliers"] == one["num_inliers"].tolist()
+                  and row["world2_gloo"]["pose_gap"] <= SHARDED_F2P_TOL,
+                  f"frames_to_poses at world 2 (gloo) against world 1: {row}")
+    finally:
+        dist.destroy_process_group()
+    emit("sharded", card=smi, **row)
+    return launches, k2_err
 
 
 def main() -> int:
@@ -1373,6 +1680,14 @@ def main() -> int:
           and f64["rotation_card_vs_cpu"] <= 1e-6, f"ba: {ba}")
     emit("ba", card=smi, **ba)
 
+    # ---- 5f'. the multi-device layer on a world-size-1 NCCL group ----------
+    # Counters at 0 before the phase, read after it (launches_sharded).
+    launches_sharded, k2_sharded_err = sharded_phase(
+        torch, dev, check, smi, emit, vo_runs, problems["50pct"][0], seq_gen,
+        cfg_fused, vo_kw)
+    errors["aca_solve_score"] = max(errors["aca_solve_score"],
+                                    k2_sharded_err)
+
     # ---- 5g. the learned models: the four heads, HomographyNet, the IHN ----
     # The JAX models reach no pallas_call: convs and dense layers are cuDNN /
     # cuBLAS in float32 (TF32 off), the IHN's warp eager gathers.  With the
@@ -1786,15 +2101,17 @@ def main() -> int:
     # whole (the yardsticks above time a dominant step, not the function).
     # launches: the main path's; launches_adaptive: the adaptive path's;
     # launches_pipeline: the VO pipeline's (frames_to_poses fused and
-    # general, planar_slam raw and smoothed); launches_real: the headline's,
-    # the image-grounded benchmark's and the wall fixture's.  Each path was driven with the
-    # counts set to 0 just before it.
+    # general, planar_slam raw and smoothed); launches_sharded: the sharded
+    # phase's (the multi-device layer at world size 1); launches_real: the
+    # headline's, the image-grounded benchmark's and the wall fixture's.
+    # Each path was driven with the counts set to 0 just before it.
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[name],
          "launches_adaptive": launches_adaptive[name],
          "launches_pipeline": launches_pipeline[name],
          "launches_real": launches_real[name],
+         "launches_sharded": launches_sharded[name],
          "max_abs_err": errors[name],
          "ms": timed[name][0], "plain_ms": timed[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
@@ -1809,4 +2126,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--gloo-rank":
+        sys.exit(gloo_rank(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -21,7 +21,12 @@ pose recovery, chaining and the pose graph), with bundle adjustment and
 checkpoints (``slam.ba``, ``slam.checkpoint``), and the learned models
 (``sks_tpu_torch.models``: the four differentiable solver heads
 ``offsets_to_h``, ``HomographyNet`` and the iterative IHN with their train
-steps); the rest of ``sks_tpu`` follows slice by slice (see ROADMAP.md).
+steps, data-parallel over a process group), and the multi-device layer
+(``sks_tpu_torch.parallel`` on ``torch.distributed``: sharded RANSAC, NDLT,
+HO, bundle adjustment and pose graph, and the sharded VO entry points).
+What the JAX package has and the port leaves out on purpose (the TPU's
+timing loops and lane padding, the double-float emulation) is listed in
+ROADMAP.md.
 """
 
 import os as _os

@@ -46,7 +46,7 @@ from sks_tpu_torch.ops import SOLVERS
 from sks_tpu_torch.ops.fp64 import SOLVERS_FP64_H
 
 __all__ = ["solver_accuracy", "throughput_real", "robust_parity", "run",
-           "main"]
+           "to_markdown", "main"]
 
 
 def _quad_residual(h, src, tar):
@@ -180,7 +180,62 @@ def run(src, tar, out_path: str | None = None, batch: int = 4096,
         with open(out_path, "w") as f:
             json.dump(result, f, indent=1)
         print("wrote", out_path)
+        if out_path.endswith(".json"):
+            md = out_path[:-5] + ".md"
+            with open(md, "w") as f:
+                f.write(to_markdown(result) + "\n")
+            print("wrote", md)
     return result
+
+
+def to_markdown(res: dict) -> str:
+    """:func:`run`'s result as a Markdown report: the solver table (float32
+    median and 99th percentile, float64 median), the robust fit against cv2
+    and, on a card, K1's rate; the tables and bullets of the JAX package's
+    ``wall_real.to_markdown``, its double-float column the native float64
+    one."""
+    sa = res["solver_accuracy"]
+    rp = res["robust_parity_full_set"]
+    lines = [
+        "# WALL_REAL: the port on wall correspondences",
+        "",
+        f"{res['n_matches']:,} correspondences, device: {res['device']}.",
+        "",
+        "## Solver accuracy on reference-shaped resampled quads",
+        "",
+        "Max reprojection residual of the defining quad (zero in exact "
+        "arithmetic; measures conditioning on the data's coordinates).",
+        "",
+        "| solver | f32 median px | f32 p99 px | f64 median px |",
+        "|---|---|---|---|",
+    ]
+    for name, row in sa.items():
+        f64 = row.get("f64_median_px")
+        lines.append(
+            f"| {name} | {row['f32_median_px']:.2e} "
+            f"| {row['f32_p99_px']:.2e} "
+            f"| {f'{f64:.1e}' if f64 is not None else '-'} |")
+    lines += [
+        "",
+        "## Robust fit on the full set vs cv2",
+        "",
+        f"- inliers (cv2 forward rule, {rp['threshold_px']:g} px): ours "
+        f"**{rp['inliers_ours']}** vs cv2 "
+        f"**{rp['inliers_cv2'] if rp['inliers_cv2'] is not None else '-'}**",
+        f"- inlier-set Jaccard: **{rp['inlier_jaccard'] or 0:.3f}**",
+        f"- corner-transfer disagreement over the data bounding box: "
+        f"**{rp['corner_transfer_disagreement_px'] or 0:.2f} px**",
+    ]
+    tp = res.get("throughput_real_quads")
+    if tp:
+        lines += [
+            "",
+            "## Throughput on resampled quads",
+            "",
+            f"Kernel K1 at B={tp['batch']:,}: **{tp['h_per_s']:.3e} H/s** "
+            "(device time).",
+        ]
+    return "\n".join(lines)
 
 
 def main(argv=None):

@@ -28,6 +28,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import Tensor, nn
 
@@ -156,20 +157,60 @@ def create_train_state(generator: torch.Generator, image_size: int = 64,
     return model, TrainState.create(model)
 
 
-def optimizer_step(state: TrainState, loss: Tensor) -> Tensor:
+def batch_block(group, *xs: Tensor):
+    """This rank's contiguous block of the batch (leading) axis of each of
+    ``xs`` over the process group ``group``; ``xs`` unchanged for None."""
+    if group is None:
+        return xs
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if xs[0].shape[0] % n:
+        raise ValueError(f"a batch of {xs[0].shape[0]} does not split over "
+                         f"{n} ranks")
+    per = xs[0].shape[0] // n
+    return tuple(x[r * per:(r + 1) * per] for x in xs)
+
+
+def optimizer_step(state: TrainState, loss: Tensor, group=None) -> Tensor:
     """Backpropagate ``loss`` and take one Adam step; returns the loss
-    detached, on its device (nothing is read back)."""
+    detached, on its device (nothing is read back).
+
+    With a process group, each rank's gradients (of its batch block's mean
+    loss) and its loss are averaged over the group in one ``all_reduce``
+    before the update: the step of the mean over the whole batch, the
+    data-parallel step the JAX package gets by sharding the batch.
+    """
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        grads = [p.grad for grp in state.optimizer.param_groups
+                 for p in grp["params"] if p.grad is not None]
+        flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat = flat / dist.get_world_size(group)
+        at = 1
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].reshape(g.shape))
+            at += g.numel()
+        loss = flat[0]
     state.optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def train_step(model: HomographyNet, state: TrainState, pair: Tensor,
-               offsets_true: Tensor):
-    """One supervised step: ``(state, loss)``, the loss a 0-d tensor."""
+               offsets_true: Tensor, group=None):
+    """One supervised step: ``(state, loss)``, the loss a 0-d tensor.
+
+    ``group``: a ``torch.distributed`` process group for a data-parallel
+    step.  Every rank passes the whole batch (B a multiple of the group's
+    size), computes the gradient of its contiguous block's mean loss, and
+    the gradients are averaged before the Adam update
+    (:func:`optimizer_step`): two ranks of 8 pairs take the step of one of
+    16, and every rank returns the whole batch's mean loss.
+    """
+    pair, offsets_true = batch_block(group, pair, offsets_true)
     loss = corner_loss(model(pair), offsets_true)
-    return state, optimizer_step(state, loss)
+    return state, optimizer_step(state, loss, group)
 
 
 def synth_training_batch(generator: torch.Generator | None, batch: int,

@@ -33,6 +33,7 @@ from sks_tpu_torch.geom.homography import apply_homography
 from sks_tpu_torch.models.deep_homography import (
     SameConv2d,
     TrainState,
+    batch_block,
     corner_loss,
     init_like_flax,
     optimizer_step,
@@ -174,8 +175,10 @@ def create_ihn_state(generator: torch.Generator, image_size: int = 64,
 
 
 def ihn_train_step(model: IterativeHomographyNet, state: TrainState,
-                   pair: Tensor, offsets_true: Tensor):
+                   pair: Tensor, offsets_true: Tensor, group=None):
     """One supervised step (sequence loss): ``(state, loss)``, the loss a
-    0-d tensor."""
+    0-d tensor.  ``group``: a process group for a data-parallel step, as in
+    ``deep_homography.train_step``."""
+    pair, offsets_true = batch_block(group, pair, offsets_true)
     loss = sequence_loss(model(pair), offsets_true)
-    return state, optimizer_step(state, loss)
+    return state, optimizer_step(state, loss, group)

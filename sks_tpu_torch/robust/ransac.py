@@ -452,17 +452,22 @@ def _top_k(scores: Tensor, k: int) -> Tensor:
 
 
 def _fused_draw(generator, src, tar, config, point_mask, indices=None,
-                prosac_sizes=None):
+                prosac_sizes=None, lanes: int = 128):
     """Check a fused-path config and draw one pair's batch: the minimal sets
-    ``(s4, t4)`` and the fused kernel's ``(src, tar, pts, weights)``."""
+    ``(s4, t4)`` and the fused kernel's ``(src, tar, pts, weights)``.
+
+    ``lanes``: the multiple ``num_hypotheses`` must be (the JAX package's
+    rule for its fused path; the kernel takes any B, and the sharded fit,
+    whose rank's share of the budget need not be one, passes 1).
+    """
     if config.solver != "aca":
         raise ValueError("the fused path is ACA-only")
     if config.scoring not in ("inliers", "msac", "magsac"):
         raise ValueError(f"the fused path cannot score {config.scoring!r}")
     b = config.num_hypotheses
-    if b % 128:
-        raise ValueError("num_hypotheses must be a multiple of 128 on the "
-                         f"fused path, as in the JAX package; got {b}")
+    if b % lanes:
+        raise ValueError(f"num_hypotheses must be a multiple of {lanes} on "
+                         f"the fused path, as in the JAX package; got {b}")
     idx = _minimal_sets(generator, src, config, point_mask, indices,
                         prosac_sizes)
     s4 = src[idx]  # (B, 4, 2)

@@ -16,12 +16,14 @@ import torch
 from torch import Tensor
 
 from sks_tpu_torch.geom.homography import apply_homography, homography_from_pose
+from sks_tpu_torch.ops.aca_rect import rect_corners
 
 __all__ = [
     "random_rotation",
     "random_plane_homographies",
     "random_correspondences",
     "random_quad_pairs",
+    "rect_offset_pairs",
     "adversarial_quad_pairs",
 ]
 
@@ -112,6 +114,33 @@ def random_quad_pairs(generator: torch.Generator, batch: int,
     """Random general-position 4-point pairs, (batch, 4, 2) each."""
     src, tar, _ = random_correspondences(generator, (batch,), 4, 0.0, dtype)
     return src, tar
+
+
+def rect_offset_pairs(
+    generator: torch.Generator | None, batch: tuple = (), size: float = 128.0,
+    max_offset: float = 32.0, dtype=torch.float32, *, u=None,
+):
+    """Deep-homography style input: rect corners + random corner offsets.
+
+    The origin is uniform in [0, 32)^2, the rect ``size`` x ``size``, and
+    each target corner the rect's corner plus a uniform offset in
+    [0, ``max_offset``) per axis.  ``u=(u_origin (..., 2), u_offset (..., 4,
+    2))`` takes the uniforms in [0, 1) in place of the generator's draws
+    (given ``jax.random.uniform`` of the JAX package's two split keys, the
+    pairs are its own).
+
+    Returns (origin, wh, tar) in the order of :func:`sks_tpu_torch.ops.
+    aca_rect`, on the generator's device (the uniforms' when given).
+    """
+    if u is None:
+        u = tuple(torch.rand(shape, generator=generator, dtype=dtype,
+                             device=generator.device)
+                  for shape in ((*batch, 2), (*batch, 4, 2)))
+    u_origin, u_offset = (torch.as_tensor(x, dtype=dtype) for x in u)
+    origin = 32.0 * u_origin
+    wh = torch.full((*batch, 2), size, dtype=dtype, device=origin.device)
+    tar = rect_corners(origin, wh) + max_offset * u_offset.to(origin.device)
+    return origin, wh, tar
 
 
 def adversarial_quad_pairs(seed: int = 0, per_case: int = 6):

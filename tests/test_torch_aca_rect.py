@@ -130,3 +130,37 @@ def test_ops_exports_every_name_of_the_jax_ops_but_the_df_ones():
               "sks_kernel_chain"):
         assert getattr(sks_tpu_torch, n) is getattr(tops, n)
         assert n in sks_tpu_torch.__all__
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_rect_offset_pairs_matches_jax_on_its_uniforms(dt):
+    """``utils.synth.rect_offset_pairs`` given the uniforms of the JAX
+    package's two split keys makes its pairs exactly; on them ``aca_rect``
+    equals the general ACA (the JAX package's ``test_aca_rect``)."""
+    import jax
+
+    from sks_tpu.utils.synth import rect_offset_pairs as jrect_offset_pairs
+
+    from sks_tpu_torch.utils.synth import rect_offset_pairs
+
+    key = jax.random.PRNGKey(4)
+    jdt = np.dtype(dt).name
+    want = jit_of(lambda k: jrect_offset_pairs(k, (32,), dtype=jdt))(key)
+    ko, kd = jax.random.split(key)
+    u = (np.array(jax.random.uniform(ko, (32, 2), jdt)),
+         np.array(jax.random.uniform(kd, (32, 4, 2), jdt)))
+    got = rect_offset_pairs(None, (32,), dtype=T(u[0]).dtype,
+                            u=(T(u[0]), T(u[1])))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(to_np(g), np.asarray(w))
+    origin, wh, tar = got
+    np.testing.assert_allclose(
+        fro(to_np(tops.aca_rect(tar, origin, wh))),
+        fro(to_np(tops.aca(tops.rect_corners(origin, wh), tar))),
+        atol=ATOL[dt])
+    drawn = rect_offset_pairs(torch.Generator().manual_seed(0), (3,),
+                              size=64.0, max_offset=8.0)
+    assert [tuple(x.shape) for x in drawn] == [(3, 2), (3, 2), (3, 4, 2)]
+    assert bool((drawn[1] == 64.0).all())
+    corners = tops.rect_corners(drawn[0], drawn[1])
+    assert bool(((drawn[2] - corners >= 0) & (drawn[2] - corners < 8)).all())

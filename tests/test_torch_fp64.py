@@ -19,6 +19,12 @@ largest entry.  Measured on these inputs: at most 1.9e-13 for the ops
 (NDLT), 8.3e-13 against the interpret-mode ACA kernel.  That is the df64
 rounding (2^-49 per operation) through chains of a few hundred operations
 and the solvers' conditioning.  Every bound is held at 1e-11.
+
+A third witness: the repository's C++ float64 solvers
+(``native/src/sks_native.cpp``, built with g++ by ``sks_tpu_torch.native``;
+skipped without a compiler), h22-normalised, against K5's plain version
+and the JAX df64 twins on the same 16 quads at the same bound (measured:
+at most 7.1e-14, NDLT).
 """
 
 import jax
@@ -109,6 +115,24 @@ def test_k5_plain_matches_jax(kind, jax_df64, jax_k5_aca):
     assert h.dtype == np.float64 and h.shape == ref.shape
     assert _rel(h, ref) <= TOL
     np.testing.assert_array_equal(h[..., 2, 2], 1.0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_k5_plain_matches_the_cpp_oracle(kind, jax_df64):
+    """The third witness: the repository's C++ float64 solvers
+    (``native/src/sks_native.cpp``, built by ``sks_tpu_torch.native``)
+    against K5's plain version and the JAX df64 twins, h22-normalised, on
+    the same 16 quads (measured: at most 7.1e-14, NDLT)."""
+    from sks_tpu_torch import native
+
+    if not native.available():
+        pytest.skip("no C++ compiler to build the native float64 oracle")
+    src, tar, hs = jax_df64
+    ref = native.solve_batch(kind, src.astype(np.float64),
+                             tar.astype(np.float64))
+    assert ref.dtype == np.float64 and ref.shape == (16, 3, 3)
+    assert _rel(_k5_plain(kind, src, tar), ref) <= TOL
+    assert _rel(ref, hs[kind] / hs[kind][..., 2:3, 2:3]) <= TOL
 
 
 _OPS = {

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-Every module of ``sks_tpu_torch/`` and ``chip_smoke.py`` is parsed with
+Every module of ``sks_tpu_torch/``, ``chip_smoke.py`` and the gloo ranks'
+program ``tests/torch_ranks.py`` is parsed with
 ``ast``; any ``import`` or ``from ... import`` of ``jax``, ``flax``,
 ``optax``, ``orbax`` or ``sks_tpu`` (a module of that name or under it) fails
 the test, wherever it stands in the file (a function body included).
@@ -16,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "sks_tpu")
 FILES = sorted(str(p.relative_to(ROOT))
                for p in (ROOT / "sks_tpu_torch").rglob("*.py")) + [
-                   "chip_smoke.py"]
+                   "chip_smoke.py", "tests/torch_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:

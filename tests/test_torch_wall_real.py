@@ -125,3 +125,49 @@ def test_main_skips_cleanly_without_the_real_file(tmp_path, monkeypatch,
     monkeypatch.setenv("SKS_WALL_POINTS", str(tmp_path / "absent.txt"))
     assert twr.main([]) is None
     assert "skipping" in capsys.readouterr().out
+
+
+def test_to_markdown_renders_the_jax_packages_tables():
+    """The same numbers in each package's result layout (the JAX package's
+    ``df64_median_px`` is the port's native ``f64_median_px``): the same
+    solver rows, robust-fit bullets and rate."""
+    rng = np.random.default_rng(2)
+    stats = {name: {"f32_median_px": float(rng.uniform(1e-6, 1e-3)),
+                    "f32_p99_px": float(rng.uniform(1e-3, 3.0)),
+                    "finite_frac": 1.0,
+                    "f64": None if name == "gpt_lu" else float(
+                        rng.uniform(1e-14, 1e-9))}
+             for name in ("aca", "sks", "rho_ge", "gpt_lu", "ho", "ndlt")}
+    rp = {"matches": 2000, "threshold_px": 3.0, "inliers_ours": 1702,
+          "inliers_ours_native_symmetric": 1700, "inliers_cv2": 1698,
+          "inlier_jaccard": 0.9931, "corner_transfer_disagreement_px": 0.0721}
+    tp = {"batch": 1 << 20, "h_per_s": 2.7123e10}
+
+    def rows(s, without):
+        return {k: v for k, v in s.items() if k != without}
+
+    jres = {"backend": "cpu", "robust_parity_full_set": rp,
+            "throughput_real_quads": tp, "solver_accuracy_on_real_quads": {
+                n: {**rows(s, "f64"), **({} if s["f64"] is None else
+                                         {"df64_median_px": s["f64"]})}
+                for n, s in stats.items()}}
+    tres = {"n_matches": 2000, "device": "cpu", "robust_parity_full_set": rp,
+            "throughput_real_quads": tp, "solver_accuracy": {
+                n: {**rows(s, "f64"), **({} if s["f64"] is None else
+                                         {"f64_median_px": s["f64"]})}
+                for n, s in stats.items()}}
+    jmd, tmd = jwr.to_markdown(jres), twr.to_markdown(tres)
+
+    def table(md):
+        lines = md.splitlines()
+        start = lines.index("|---|---|---|---|") + 1
+        return [ln for ln in lines[start:start + 6]]
+
+    assert table(tmd) == table(jmd) and len(table(tmd)) == 6
+    assert "| gpt_lu |" in table(tmd)[3] and table(tmd)[3].endswith("| - |")
+    bullets = [ln for ln in jmd.splitlines() if ln.startswith("- ")]
+    assert bullets == [ln for ln in tmd.splitlines() if ln.startswith("- ")]
+    assert len(bullets) == 3 and "**2.712e+10 H/s**" in jmd
+    assert "**2.712e+10 H/s**" in tmd
+    del tres["throughput_real_quads"]
+    assert "H/s" not in twr.to_markdown(tres)
