@@ -128,15 +128,26 @@ def measure(shape=(240, 320), capstone: bool = False, runs: int = 3,
     }
 
 
-#: The ``record_function`` ranges of the path (``slam/pipeline.py``,
-#: ``slam/odometry.py``, ``robust/ransac.py``), one after the other, none
-#: inside another: describe, match, the minimal-set draws, K2, the per-pair
-#: tail (top-K re-score, IRLS refit, LM polish), the general route's fits,
-#: the guarded ESM polish of all pairs, pose recovery, the metric chain, the
-#: pose graph.
+#: The named ranges of the path (``slam/pipeline.py``, ``slam/odometry.py``,
+#: ``robust/ransac.py``): describe, match, the minimal-set draws, K2, the
+#: per-pair tail (top-K re-score, IRLS refit, LM polish), the general route's
+#: fits, the guarded ESM polish of all pairs, pose recovery, the metric
+#: chain, the pose graph.  They follow one another, but for the general
+#: route's fits, which hold each fit's own ``ransac/tail``: a stage is
+#: credited only where no other stage holds it (:func:`trace_split`).
 STAGES = ("vo/describe", "vo/match", "ransac/draw", "ransac/k2",
           "ransac/tail", "ransac/general", "vo/esm", "vo/pose", "vo/chain",
           "vo/posegraph")
+
+
+def _outermost(spans):
+    """The ``(start, end, name)`` spans that no other span holds, in order
+    of their starts (spans nest or follow one another)."""
+    out = []
+    for span in sorted(spans, key=lambda x: (x[0], -x[1])):
+        if not out or span[1] > out[-1][1]:
+            out.append(span)
+    return out
 
 
 def trace_split(events) -> dict:
@@ -151,9 +162,12 @@ def trace_split(events) -> dict:
     else the stage whose device-side copy holds it (an event of the range's
     name on the device, spanning the kernels launched inside the range: how
     K2, launched through ``ctypes`` and not by an ATen operation, is found),
-    else "other".  Those copies, and every device event named as a host
-    event is (the profiler copies some host ranges to the device, such as
-    Adam's ``Optimizer.step``), are not device work.  ``busy_ms`` is the
+    else "other".  Where stages nest (``ransac/general`` holds each fit's
+    ``ransac/tail``), host time and launches go to the outermost, so a
+    stage holds the time it would hold with no stage inside it.  Those
+    copies, and every device event named as a host event is (the profiler
+    copies some host ranges to the device, such as Adam's
+    ``Optimizer.step``), are not device work.  ``busy_ms`` is the
     union of the device intervals; ``span_ms`` runs from the first to the
     last event of the call, host or device; ``idle_share = 1 - busy_ms /
     span_ms``; ``top_kernels_ms`` the six device kernels that take the most
@@ -179,8 +193,7 @@ def trace_split(events) -> dict:
             ranges.append((start, end, name))
         elif evt.correlation_id() and not name.startswith("cuda"):
             op_start[evt.correlation_id()] = start
-    ranges.sort()
-    dev_ranges.sort()
+    ranges, dev_ranges = _outermost(ranges), _outermost(dev_ranges)
 
     def stage_at(spans, t):
         i = bisect.bisect_right(spans, (t, float("inf"))) - 1

@@ -39,7 +39,6 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 from torch import Tensor
-from torch.profiler import record_function
 
 from sks_tpu_torch.geom.homography import apply_homography, inv_h
 from sks_tpu_torch.kernels import (
@@ -52,6 +51,7 @@ from sks_tpu_torch.kernels.aca_cuda import aca_solve_score_soa
 from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask, sks_valid_mask
 from sks_tpu_torch.ops.fp64 import residual2_fp64
 from sks_tpu_torch.ops.ndlt import ndlt_h
+from sks_tpu_torch.utils.profiling import annotate, count
 
 __all__ = [
     "ADAPTIVE_MAX_CHUNK",
@@ -310,6 +310,7 @@ def _minimal_sets(generator, src, config, point_mask, indices,
                 f"indices must be an integer ({b}, 4) tensor; got "
                 f"{idx.dtype} {tuple(idx.shape)}"
             )
+    count("ransac.hypotheses", b)
     return idx.to(device=src.device, dtype=torch.long)
 
 
@@ -484,22 +485,23 @@ def _fused_top(counts, s4, t4, src, tar, config, point_mask):
     re-scored on the eager path, so downstream selection and polish see
     exactly the general path's numbers.  Returns as :func:`_eval_chunk`."""
     b = config.num_hypotheses
-    top_idx = _top_k(counts, max(1, min(config.lo_candidates, b)))
+    with annotate("ransac/rescore"):
+        top_idx = _top_k(counts, max(1, min(config.lo_candidates, b)))
 
-    # Only the K winning minimal sets are re-solved on the eager path.
-    s4k, t4k = s4[top_idx], t4[top_idx]
-    h_top = SOLVERS_H["aca"](s4k, t4k)
-    h_top = torch.where(aca_valid_mask(s4k, t4k)[..., None, None], h_top,
-                        torch.full_like(h_top, torch.nan))
-    sc_top, inl = score_hypotheses(
-        h_top, src, tar, config.threshold, point_mask, config.scoring,
-        config.sigma_max, config.df64_scoring,
-    )
-    # The kernel ordered candidates by its own scores; the eager re-score can
-    # disagree near ties, and _refine_and_pack wants best first.  A stable
-    # ascending sort of the negation, as jnp.argsort(-sc_top).
-    order = torch.sort(-sc_top, stable=True).indices
-    return h_top[order], sc_top[order], _take(inl, order[0])
+        # Only the K winning minimal sets are re-solved on the eager path.
+        s4k, t4k = s4[top_idx], t4[top_idx]
+        h_top = SOLVERS_H["aca"](s4k, t4k)
+        h_top = torch.where(aca_valid_mask(s4k, t4k)[..., None, None], h_top,
+                            torch.full_like(h_top, torch.nan))
+        sc_top, inl = score_hypotheses(
+            h_top, src, tar, config.threshold, point_mask, config.scoring,
+            config.sigma_max, config.df64_scoring,
+        )
+        # The kernel ordered candidates by its own scores; the eager re-score
+        # can disagree near ties, and _refine_and_pack wants best first.  A
+        # stable ascending sort of the negation, as jnp.argsort(-sc_top).
+        order = torch.sort(-sc_top, stable=True).indices
+        return h_top[order], sc_top[order], _take(inl, order[0])
 
 
 def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None,
@@ -510,21 +512,33 @@ def _eval_chunk_fused(generator, src, tar, config, point_mask, indices=None,
     top-K winning minimal sets are re-solved and re-scored on the eager path.
     Composes with PROSAC indices, padded point sets and bfloat16 storage.
     """
-    (s4, t4), (s_soa, t_soa, pts, pw) = _fused_draw(
-        generator, src, tar, config, point_mask, indices, prosac_sizes)
-    counts = aca_solve_score_soa(
-        s_soa, t_soa, pts, fused_kernel_threshold(config), point_weights=pw,
-        scoring=config.scoring,
-    )
+    with annotate("ransac/draw"):
+        (s4, t4), (s_soa, t_soa, pts, pw) = _fused_draw(
+            generator, src, tar, config, point_mask, indices, prosac_sizes)
+    with annotate("ransac/k2"):
+        counts = aca_solve_score_soa(
+            s_soa, t_soa, pts, fused_kernel_threshold(config),
+            point_weights=pw, scoring=config.scoring,
+        )
     return _fused_top(counts, s4, t4, src, tar, config, point_mask)
 
 
 def _eval_chunk(generator, src, tar, config, point_mask, indices=None,
                 prosac_sizes=None):
     """Sample + solve + score one fixed-shape batch; return its top-K."""
-    if config.fused:
-        return _eval_chunk_fused(generator, src, tar, config, point_mask,
+    count("ransac.chunks")
+    with annotate("ransac/chunk"):
+        if config.fused:
+            return _eval_chunk_fused(generator, src, tar, config, point_mask,
+                                     indices, prosac_sizes)
+        return _eval_chunk_eager(generator, src, tar, config, point_mask,
                                  indices, prosac_sizes)
+
+
+def _eval_chunk_eager(generator, src, tar, config, point_mask, indices,
+                      prosac_sizes):
+    """:func:`_eval_chunk` on the general path: every hypothesis solved and
+    scored by eager operations (the solve in its kernel where there is one)."""
     idx = _minimal_sets(generator, src, config, point_mask, indices,
                         prosac_sizes)
     s4 = src[idx]  # (B, 4, 2)
@@ -556,10 +570,12 @@ def _refine_and_pack(h_top, sc_top, inl_best, src, tar, config, point_mask):
     """
     h_best, score0 = h_top[0], sc_top[0]
     if config.refine_iters > 0:
-        h_pol = _irls_refine(
-            h_top, src, tar, config.refine_iters, config.threshold,
-            point_mask, config.scoring, config.sigma_max, config.df64_scoring,
-        )
+        with annotate("ransac/irls"):
+            h_pol = _irls_refine(
+                h_top, src, tar, config.refine_iters, config.threshold,
+                point_mask, config.scoring, config.sigma_max,
+                config.df64_scoring,
+            )
         # Candidates: every polished model, plus the raw champion as the
         # keep-if-better fallback (last, so polished wins score ties).
         cand = torch.cat([h_pol, h_best[None]], dim=0)
@@ -578,29 +594,9 @@ def _refine_and_pack(h_top, sc_top, inl_best, src, tar, config, point_mask):
         inl_best = _take(inls, idx)
         score0 = _take(sc, idx)
     if config.final_polish:
-        from sks_tpu_torch.robust.polish import anneal_polish, gn_refine_h
-
-        if config.scoring == "lmeds":
-            # No fixed threshold to anneal: one weighted LM on the
-            # robust-sigma consensus of the selected model.
-            h_pol = gn_refine_h(h_best, src, tar, inl_best.to(src.dtype))
-        else:
-            h_pol = anneal_polish(
-                h_best, src, tar, config.threshold, point_mask
-            )
-        # Report mask/score of the polished model at the *user* threshold.
-        sc_p, inl_p = score_hypotheses(
-            h_pol[None], src, tar, config.threshold, point_mask,
-            config.scoring, config.sigma_max, config.df64_scoring,
-        )
-        ok = torch.isfinite(h_pol).all()
-        if config.scoring != "lmeds":
-            # Collapse guard: a large consensus drop means the refit left the
-            # basin — keep the pre-polish model.
-            ok = ok & (sc_p[0] >= 0.5 * score0)
-        h_best = torch.where(ok, h_pol, h_best)
-        inl_best = torch.where(ok, inl_p[0], inl_best)
-        score0 = torch.where(ok, sc_p[0], score0)
+        with annotate("ransac/polish"):
+            h_best, inl_best, score0 = _polish(h_best, inl_best, score0, src,
+                                               tar, config, point_mask)
     h_best = h_best / h_best[2, 2]
     return RansacResult(
         h=h_best,
@@ -608,6 +604,34 @@ def _refine_and_pack(h_top, sc_top, inl_best, src, tar, config, point_mask):
         num_inliers=torch.sum(inl_best).to(torch.int32),
         score=score0,
     )
+
+
+def _polish(h_best, inl_best, score0, src, tar, config, point_mask):
+    """The final geometric polish of the selected model, kept only if it
+    holds its consensus: returns (h, inlier mask, score)."""
+    from sks_tpu_torch.robust.polish import anneal_polish, gn_refine_h
+
+    if config.scoring == "lmeds":
+        # No fixed threshold to anneal: one weighted LM on the
+        # robust-sigma consensus of the selected model.
+        h_pol = gn_refine_h(h_best, src, tar, inl_best.to(src.dtype))
+    else:
+        h_pol = anneal_polish(
+            h_best, src, tar, config.threshold, point_mask
+        )
+    # Report mask/score of the polished model at the *user* threshold.
+    sc_p, inl_p = score_hypotheses(
+        h_pol[None], src, tar, config.threshold, point_mask,
+        config.scoring, config.sigma_max, config.df64_scoring,
+    )
+    ok = torch.isfinite(h_pol).all()
+    if config.scoring != "lmeds":
+        # Collapse guard: a large consensus drop means the refit left the
+        # basin — keep the pre-polish model.
+        ok = ok & (sc_p[0] >= 0.5 * score0)
+    return (torch.where(ok, h_pol, h_best),
+            torch.where(ok, inl_p[0], inl_best),
+            torch.where(ok, sc_p[0], score0))
 
 
 def ransac_homography(
@@ -639,10 +663,12 @@ def ransac_homography(
     Returns:
       RansacResult with the best model (normalized), its inliers and score.
     """
-    h_top, sc_top, inl_best = _eval_chunk(generator, src, tar, config,
-                                          point_mask, indices)
-    return _refine_and_pack(h_top, sc_top, inl_best, src, tar, config,
-                            point_mask)
+    with annotate("ransac/fit"):
+        h_top, sc_top, inl_best = _eval_chunk(generator, src, tar, config,
+                                              point_mask, indices)
+        with annotate("ransac/tail"):
+            return _refine_and_pack(h_top, sc_top, inl_best, src, tar, config,
+                                    point_mask)
 
 
 def fused_kernel_threshold(config: RansacConfig) -> float:
@@ -678,10 +704,8 @@ def ransac_homography_fused(
     'msac' or 'magsac'; ``config.num_hypotheses`` a multiple of 128.
     Arguments as :func:`ransac_homography`, ``indices=`` included.
     """
-    h_top, sc_top, inl_best = _eval_chunk_fused(generator, src, tar, config,
-                                                point_mask, indices)
-    return _refine_and_pack(h_top, sc_top, inl_best, src, tar, config,
-                            point_mask)
+    return ransac_homography(generator, src, tar, replace(config, fused=True),
+                             point_mask, indices=indices)
 
 
 def ransac_homography_fused_batch(
@@ -724,7 +748,7 @@ def ransac_homography_fused_batch(
             generator = torch.Generator(device=src.device).manual_seed(0)
         gens = [generator] * len(pairs)
     masks = [None if point_mask is None else point_mask[i] for i in pairs]
-    with record_function("ransac/draw"):
+    with annotate("ransac/draw"):
         draws = [
             _fused_draw(gens[i], src[i], tar[i], config, masks[i],
                         None if indices is None else indices[i])
@@ -734,13 +758,13 @@ def ransac_homography_fused_batch(
             return []
         s_soa, t_soa, pts, pw = (torch.stack(x) for x in
                                  zip(*(kernel_in for _, kernel_in in draws)))
-    with record_function("ransac/k2"):
+    with annotate("ransac/k2"):
         counts = aca_solve_score_soa(
             s_soa, t_soa, pts, fused_kernel_threshold(config),
             point_weights=pw, scoring=config.scoring,
         )
     results = []
-    with record_function("ransac/tail"):
+    with annotate("ransac/tail"):
         for i, ((s4, t4), _) in enumerate(draws):
             top = _fused_top(counts[i], s4, t4, src[i], tar[i], config,
                              masks[i])
@@ -862,79 +886,92 @@ def ransac_homography_adaptive(
     Returns:
       RansacResult of the shared refine-and-polish tail on the merged top-K.
     """
-    n = src.shape[-2]
-    dtype, device = src.dtype, src.device
-    nf = (torch.sum(point_mask).to(dtype) if point_mask is not None
-          else _scalar(n, src))
-    chunk0 = config.num_hypotheses
-    if max_chunk is None:
-        max_chunk = ADAPTIVE_MAX_CHUNK
-    stages = _chunk_schedule(chunk0, max_chunks, growth, chunks_per_stage,
-                             max_chunk)
-    total_budget = sum(c * k for c, k in stages)
-    conf = torch.clamp(_scalar(confidence, src), 0.0, 1.0 - 1e-7)
+    with annotate("ransac/fit"):
+        n = src.shape[-2]
+        dtype, device = src.dtype, src.device
+        nf = (torch.sum(point_mask).to(dtype) if point_mask is not None
+              else _scalar(n, src))
+        chunk0 = config.num_hypotheses
+        if max_chunk is None:
+            max_chunk = ADAPTIVE_MAX_CHUNK
+        stages = _chunk_schedule(chunk0, max_chunks, growth, chunks_per_stage,
+                                 max_chunk)
+        total_budget = sum(c * k for c, k in stages)
+        conf = torch.clamp(_scalar(confidence, src), 0.0, 1.0 - 1e-7)
 
-    def needed(num_inl):
-        w = num_inl / torch.clamp(nf, min=1.0)
-        w2 = w * w
-        p_good = torch.clamp(w2 * w2, 1e-12, 1.0 - 1e-7)
-        return torch.log1p(-conf) / torch.log1p(-p_good)
+        def needed(num_inl):
+            w = num_inl / torch.clamp(nf, min=1.0)
+            w2 = w * w
+            p_good = torch.clamp(w2 * w2, 1e-12, 1.0 - 1e-7)
+            return torch.log1p(-conf) / torch.log1p(-p_good)
 
-    # PROSAC: one global growth schedule over the worst-case budget, sliced
-    # per chunk at the running hypothesis offset — later chunks continue
-    # toward uniform sampling instead of re-drawing the quality-concentrated
-    # head every time.
-    all_sizes = (
-        torch.as_tensor(prosac_prefix_sizes(n, total_budget), device=device)
-        if config.sampling == "prosac" and indices is None
-        else None
-    )
-    if indices is not None:
-        indices = torch.as_tensor(indices)
-        if indices.shape != (total_budget, 4) or indices.is_floating_point():
-            raise ValueError(
-                f"indices must be an integer ({total_budget}, 4) tensor, the "
-                f"whole schedule's draws; got {indices.dtype} "
-                f"{tuple(indices.shape)}"
+        # PROSAC: one global growth schedule over the worst-case budget,
+        # sliced per chunk at the running hypothesis offset — later chunks
+        # continue toward uniform sampling instead of re-drawing the
+        # quality-concentrated head every time.
+        all_sizes = (
+            torch.as_tensor(prosac_prefix_sizes(n, total_budget),
+                            device=device)
+            if config.sampling == "prosac" and indices is None
+            else None
+        )
+        if indices is not None:
+            indices = torch.as_tensor(indices)
+            if (indices.shape != (total_budget, 4)
+                    or indices.is_floating_point()):
+                raise ValueError(
+                    f"indices must be an integer ({total_budget}, 4) tensor, "
+                    f"the whole schedule's draws; got {indices.dtype} "
+                    f"{tuple(indices.shape)}"
+                )
+            indices = indices.to(device)
+        if generator is None and indices is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        k_cand = max(1, min(config.lo_candidates, chunk0))
+
+        h_k = torch.full((k_cand, 3, 3), torch.nan, dtype=dtype, device=device)
+        sc_k = torch.full((k_cand,), -torch.inf, dtype=dtype, device=device)
+        inl = torch.zeros(n, dtype=torch.bool, device=device)
+        ninl = _scalar(0.0, src)
+        done = 0  # hypotheses drawn so far
+        bound = None  # the last read's hypotheses needed (0-d)
+
+        for c_s in (c for c, k in stages for _ in range(k)):
+            flag = _scalar(done, src) < (bound := needed(ninl))
+            with annotate("ransac/sync"):
+                go = _read_flag(flag)
+            count("ransac.host_reads")
+            if not go:
+                break  # bound met: no later stage evaluates a chunk
+            cfg_s = replace(
+                config,
+                num_hypotheses=c_s,
+                fused=config.fused and c_s >= FUSED_ADAPTIVE_MIN_CHUNK,
             )
-        indices = indices.to(device)
-    if generator is None and indices is None:
-        generator = torch.Generator(device=device).manual_seed(0)
-    k_cand = max(1, min(config.lo_candidates, chunk0))
+            part = slice(done, done + c_s)
+            h_c, sc_c, inl_c = _eval_chunk(
+                generator, src, tar, cfg_s, point_mask,
+                None if indices is None else indices[part],
+                None if all_sizes is None else all_sizes[part],
+            )
+            # Merge running top-K with this chunk's top-K.
+            sc_all = torch.cat([sc_k, sc_c])
+            h_all = torch.cat([h_k, h_c])
+            idx = _top_k(sc_all, k_cand)
+            better = sc_c[0] > sc_k[0]
+            inl = torch.where(better, inl_c, inl)
+            ninl = torch.where(better, torch.sum(inl_c).to(dtype), ninl)
+            h_k, sc_k = h_all[idx], sc_all[idx]
+            done += c_s
 
-    h_k = torch.full((k_cand, 3, 3), torch.nan, dtype=dtype, device=device)
-    sc_k = torch.full((k_cand,), -torch.inf, dtype=dtype, device=device)
-    inl = torch.zeros(n, dtype=torch.bool, device=device)
-    ninl = _scalar(0.0, src)
-    done = 0  # hypotheses drawn so far
+        if bound is not None:
+            count("ransac.bound", bound)
 
-    for c_s in (c for c, k in stages for _ in range(k)):
-        if not _read_flag(_scalar(done, src) < needed(ninl)):
-            break  # bound met: no later stage evaluates a chunk
-        cfg_s = replace(
-            config,
-            num_hypotheses=c_s,
-            fused=config.fused and c_s >= FUSED_ADAPTIVE_MIN_CHUNK,
-        )
-        part = slice(done, done + c_s)
-        h_c, sc_c, inl_c = _eval_chunk(
-            generator, src, tar, cfg_s, point_mask,
-            None if indices is None else indices[part],
-            None if all_sizes is None else all_sizes[part],
-        )
-        # Merge running top-K with this chunk's top-K.
-        sc_all = torch.cat([sc_k, sc_c])
-        h_all = torch.cat([h_k, h_c])
-        idx = _top_k(sc_all, k_cand)
-        better = sc_c[0] > sc_k[0]
-        inl = torch.where(better, inl_c, inl)
-        ninl = torch.where(better, torch.sum(inl_c).to(dtype), ninl)
-        h_k, sc_k = h_all[idx], sc_all[idx]
-        done += c_s
-
-    # All-or-nothing fallback per candidate: a partially-finite model must not
-    # be blended elementwise with the identity.
-    finite = _all_finite(h_k)
-    h_top = torch.where(finite[:, None, None], h_k,
-                        torch.eye(3, dtype=dtype, device=device))
-    return _refine_and_pack(h_top, sc_k, inl, src, tar, config, point_mask)
+        # All-or-nothing fallback per candidate: a partially-finite model must
+        # not be blended elementwise with the identity.
+        finite = _all_finite(h_k)
+        h_top = torch.where(finite[:, None, None], h_k,
+                            torch.eye(3, dtype=dtype, device=device))
+        with annotate("ransac/tail"):
+            return _refine_and_pack(h_top, sc_k, inl, src, tar, config,
+                                    point_mask)

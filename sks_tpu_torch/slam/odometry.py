@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import torch
 from torch import Tensor
-from torch.profiler import record_function
 
 from sks_tpu_torch.geom.lie import mm_small
 from sks_tpu_torch.geom.pose import recover_pose
@@ -36,6 +35,7 @@ from sks_tpu_torch.robust.ransac import (
 )
 from sks_tpu_torch.slam.posegraph import PoseGraph, _inv_se3, optimize_posegraph
 from sks_tpu_torch.slam.tracking import esm_guard, esm_polish_pair_symmetric
+from sks_tpu_torch.utils.profiling import annotate
 from sks_tpu_torch.utils.streams import CLOSURE_STREAM_OFFSET, pair_generators
 
 __all__ = ["vo_trajectory", "chain_poses", "closure_candidates",
@@ -96,7 +96,7 @@ def _esm_select(h, inlier_mask, f1, f2, p1, p2, pm, config, esm_iters):
 
     Returns (h (P, 3, 3), num_inliers (P,) int32).
     """
-    with record_function("vo/esm"):
+    with annotate("vo/esm"):
         h_esm, _ = esm_polish_pair_symmetric(f1, f2, h, iters=esm_iters)
         ok = esm_guard(h, h_esm, p1, p2, inlier_mask)
         inl = torch.stack([
@@ -129,7 +129,7 @@ def fit_pairs(generators, pts1, pts2, masks, k_mat, config, plane_normal,
         results = ransac_homography_fused_batch(
             generators, pts1, pts2, config, masks, indices=indices)
     else:
-        with record_function("ransac/general"):
+        with annotate("ransac/general"):
             results = [
                 ransac_homography(generators[i], pts1[i], pts2[i], config,
                                   point_mask=masks[i],
@@ -143,7 +143,7 @@ def fit_pairs(generators, pts1, pts2, masks, k_mat, config, plane_normal,
         h, ninl = _esm_select(
             h, torch.stack([res.inlier_mask for res in results]), frames1,
             frames2, pts1, pts2, masks, config, esm_iters)
-    with record_function("vo/pose"):
+    with annotate("vo/pose"):
         r, t, n, _ = recover_pose(h, k_mat, k_mat, pts1, pts2,
                                   normal_prior=plane_normal)
     return r, t, n, ninl
@@ -157,7 +157,7 @@ def chain_metric(r, t_over_d, n, plane_depth):
     so d_{i+1} = d_i + n_{i+1}.t_i.  Returns (rel (T-1,4,4), poses (T,4,4),
     depths (T,)).
     """
-    with record_function("vo/chain"):
+    with annotate("vo/chain"):
         d = torch.full((), plane_depth, dtype=r.dtype, device=r.device)
         t_metric, d_at = [], []
         for i in range(r.shape[0]):  # the JAX package's lax.scan
@@ -340,7 +340,7 @@ def assemble_trajectory(r, t_over_d, n, ninl, plane_depth: float,
             weights = torch.cat([weights, w_c], dim=0)
         graph = PoseGraph(poses=poses, edges=edges, meas=meas,
                           weights=weights)
-        with record_function("vo/posegraph"):
+        with annotate("vo/posegraph"):
             out["poses"] = optimize_posegraph(graph, gn_iters=5,
                                               cg_iters=30).poses
     return out

@@ -9,7 +9,7 @@ pose-graph relaxation.  With ``esm_iters > 0`` every pair's model is densely
 polished against its two frames (``slam/tracking.py``, all pairs of a batch
 in one pass of the ESM loop) before pose recovery.  Every stage stays on the
 frames' device and reads nothing back to the host.  Each stage runs inside a
-``torch.profiler.record_function`` range (``vo/...``, ``ransac/...``), from
+named range (``utils.profiling.annotate``: ``vo/...``, ``ransac/...``), from
 which ``bench/pipeline_fps.py`` reads the stage split of one traced call.
 
 The sharded forms (:func:`sharded_frames_to_poses`,
@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import torch
 from torch import Tensor
-from torch.profiler import record_function
 
 from sks_tpu_torch.features.matching import describe_frames, match_features
 from sks_tpu_torch.parallel.mesh import Mesh, all_gather
@@ -41,6 +40,7 @@ from sks_tpu_torch.slam.odometry import (
     fit_pairs,
     vo_trajectory,
 )
+from sks_tpu_torch.utils.profiling import annotate
 from sks_tpu_torch.utils.streams import CLOSURE_STREAM_OFFSET, pair_generators
 
 __all__ = ["frames_to_poses", "planar_slam", "sharded_frames_to_poses",
@@ -61,9 +61,9 @@ def _match_pairs_cached(frames: Tensor, idx1: Tensor, idx2: Tensor,
     Returns (p1 (P, K, 2), p2 (P, K, 2), valid (P, K)), invalid slots at the
     image center.
     """
-    with record_function("vo/describe"):
+    with annotate("vo/describe"):
         feats = describe_frames(frames, num_corners, num_octaves)
-    with record_function("vo/match"):
+    with annotate("vo/match"):
         f_i = {k: v[idx1] for k, v in feats.items()}
         f_j = {k: v[idx2] for k, v in feats.items()}
         p1, p2, valid, _ = match_features(f_i, f_j)

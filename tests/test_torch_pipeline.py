@@ -287,6 +287,54 @@ def test_trace_split_assigns_device_time_to_stages():
         ("conv_kernel", 2.0), ("sum_chunks_kernel", 1.0)]
 
 
+def test_trace_split_credits_nested_stages_to_the_outermost():
+    """The general route's ``ransac/general`` holds each fit's own
+    ``ransac/tail`` (a stage too): its host time and the kernels launched
+    inside it go to ``ransac/general``, which keeps the time it would have
+    with no stage inside it; the device-side copies nest alike."""
+    from sks_tpu_torch.bench.pipeline_fps import trace_split
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    class Evt:
+        def __init__(self, name, start, end, device, cid=0, linked=0):
+            self._v = (name, start, end, device, cid, linked)
+
+        def name(self): return self._v[0]
+        def start_ns(self): return self._v[1]
+        def end_ns(self): return self._v[2]
+        def device_type(self): return self._v[3]
+        def correlation_id(self): return self._v[4]
+        def linked_correlation_id(self): return self._v[5]
+
+    ms = 1_000_000
+    events = [
+        Evt("ransac/general", 0, 20 * ms, cpu, cid=1),
+        Evt("ransac/fit", 0, 9 * ms, cpu, cid=2),
+        Evt("ransac/tail", 4 * ms, 9 * ms, cpu, cid=3),
+        Evt("aten::mul", 1 * ms, 2 * ms, cpu, cid=4),
+        Evt("aten::add", 5 * ms, 6 * ms, cpu, cid=5),
+        Evt("ransac/fit", 10 * ms, 20 * ms, cpu, cid=6),
+        Evt("ransac/tail", 12 * ms, 20 * ms, cpu, cid=7),
+        Evt("aten::sub", 13 * ms, 14 * ms, cpu, cid=8),
+        Evt("vo/pose", 21 * ms, 25 * ms, cpu, cid=9),
+        Evt("aten::div", 22 * ms, 23 * ms, cpu, cid=10),
+        Evt("ransac/general", 1 * ms, 21 * ms, cuda),
+        Evt("ransac/tail", 5 * ms, 10 * ms, cuda),
+        Evt("mul_kernel", 2 * ms, 3 * ms, cuda, linked=4),
+        Evt("add_kernel", 6 * ms, 8 * ms, cuda, linked=5),
+        Evt("sub_kernel", 14 * ms, 15 * ms, cuda, linked=8),
+        Evt("k2_kernel", 7 * ms, 8 * ms, cuda, linked=99),
+        Evt("div_kernel", 23 * ms, 24 * ms, cuda, linked=10),
+    ]
+    split = trace_split(events)
+    assert split["stages_host_ms"] == {"ransac/general": 20.0,
+                                       "vo/pose": 4.0}
+    assert split["stages_device_ms"] == {"ransac/general": 5.0,
+                                         "vo/pose": 1.0}
+    assert split["device_kernels"] == 5
+
+
 def test_esm_polish_raises_until_it_is_ported(seq, jmatches):
     """The dense ESM polish is ported: every entry point that takes
     ``esm_iters`` runs it (``planar_slam`` by default, ``esm_iters=8``) and
