@@ -105,6 +105,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def without_refit(made: dict) -> dict:
+    """Launch counts without the IRLS refit's kernel ('irls_refine'), which
+    every float32 fit on the card launches once for its top-K candidates:
+    the rest says which solve and score kernels a path ran."""
+    return {k: v for k, v in made.items() if k != "irls_refine"}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -420,8 +427,10 @@ def real_paths(torch, dev, check, smi, emit) -> dict:
           and card_vs_cpu["h_max_fro_diff"] <= 1e-4,
           f"real_pipeline: card vs CPU: {card_vs_cpu}")
     # K2 once a pair fit, once a sequence_ate, 1 + 1 + 2 in
-    # loop_closure_ate, once the card-versus-CPU fit; nothing else.
-    check(launches == {"aca_solve_score": fits + 1 + 4 + 1},
+    # loop_closure_ate, once the card-versus-CPU fit; nothing else but the
+    # IRLS refit, at least once behind each K2 launch (once a pair).
+    check(without_refit(launches) == {"aca_solve_score": fits + 1 + 4 + 1}
+          and launches.get("irls_refine", 0) >= fits + 1 + 4 + 1,
           f"real_pipeline launches: {launches}, {fits} pair fits")
     emit("real_pipeline", card=smi, **rp)
 
@@ -636,9 +645,12 @@ def sharded_phase(torch, dev, check, smi, emit, vo_runs, ransac_problem,
         row["seconds"] = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         row["launches"] = {k: v for k, v in launches.items() if v}
-        check(row["launches"] == {"aca_solve": 1, "aca_solve_score": 3},
+        check(without_refit(row["launches"])
+              == {"aca_solve": 1, "aca_solve_score": 3}
+              and row["launches"].get("irls_refine", 0) >= 2,
               f"sharded: K1 once (general RANSAC), K2 once for each of the "
-              f"fused RANSAC, frames_to_poses and planar_slam: {row}")
+              f"fused RANSAC, frames_to_poses and planar_slam, the IRLS "
+              f"refit behind each fit: {row}")
 
         # Against the single-device forms on the card.
         idx = sample_minimal_sets(pair_generators(11, 1, device=dev)[0],
@@ -1305,12 +1317,17 @@ def main() -> int:
               f"adaptive {name}: {adaptive[name]}")
     # An easy fit stops within the first two chunks (256, 256), eager
     # chunks through K1 and nothing else.
-    made = adaptive["50pct"]["launches"]
+    for name in ("50pct", "95pct_fused", "50pct_prosac_fused",
+                 "50pct_prosac_confidence"):
+        check(adaptive[name]["launches"].get("irls_refine") == 1,
+              f"a float32 adaptive fit refits its top-K in one launch: "
+              f"{adaptive[name]}")
+    made = without_refit(adaptive["50pct"]["launches"])
     check(set(made) == {"aca_solve"} and 1 <= made["aca_solve"] <= 2,
           f"the 50% fit must stop within the first two chunks on K1: {made}")
     # method='fused': the stages from FUSED_ADAPTIVE_MIN_CHUNK on run K2, one
     # launch a chunk; the smaller ones before them K1.
-    made = adaptive["95pct_fused"]["launches"]
+    made = without_refit(adaptive["95pct_fused"]["launches"])
     sizes = schedule(iters95)[:sum(made.values())]
     fused_chunks = sum(c >= R.FUSED_ADAPTIVE_MIN_CHUNK for c in sizes)
     adaptive["95pct_fused"].update(
@@ -1324,7 +1341,8 @@ def main() -> int:
     made = adaptive["50pct_fp64"]["launches"]
     check(set(made) == {"fp64_aca"} and runs["50pct_fp64"][0][0].dtype
           == torch.float64, f"the float64 adaptive fit must run K5-aca: {made}")
-    check(adaptive["50pct_prosac_fused"]["launches"] == {"aca_solve_score": 1},
+    check(without_refit(adaptive["50pct_prosac_fused"]["launches"])
+          == {"aca_solve_score": 1},
           "a fixed-batch PROSAC fit on the card takes the fused kernel once: "
           f"{adaptive['50pct_prosac_fused']}")
     (h4, mask4), made = runs["batched_4_pairs"]
@@ -1441,18 +1459,25 @@ def main() -> int:
         check(bool(torch.isfinite(out["poses"]).all()) and ate < bound
               and out["poses"].shape == (16, 4, 4),
               f"pipeline {name}: {pipeline[name]}")
-    check(vo_runs["fused"][2] == {"aca_solve_score": 1},
+    for name, (_, out_, made_, _) in vo_runs.items():
+        pairs_fit = out_["num_inliers"].numel() + (
+            out_["closure_inliers"].numel() if "closure_inliers" in out_
+            else 0)
+        check(made_.get("irls_refine") == pairs_fit,
+              f"{name}: the IRLS refit once a pair fit: {made_}, "
+              f"{pairs_fit} fits")
+    check(without_refit(vo_runs["fused"][2]) == {"aca_solve_score": 1},
           f"a fused frames_to_poses launches K2 once: {pipeline['fused']}")
-    check(vo_runs["general"][2] == {"aca_solve": 15},
+    check(without_refit(vo_runs["general"][2]) == {"aca_solve": 15},
           f"a general frames_to_poses launches K1 once a pair: "
           f"{pipeline['general']}")
-    check(vo_runs["fused_esm_vga"][2] == {"aca_solve_score": 1},
+    check(without_refit(vo_runs["fused_esm_vga"][2]) == {"aca_solve_score": 1},
           f"frames_to_poses(esm_iters=8) launches K2 once: "
           f"{pipeline['fused_esm_vga']}")
     for name in ("planar_slam_smooth_False", "planar_slam_smooth_True",
                  "planar_slam_esm"):
         run_ = vo_runs[name]
-        check(run_[2] == {"aca_solve_score": 2}
+        check(without_refit(run_[2]) == {"aca_solve_score": 2}
               and run_[1]["closure_inliers"].shape == (closures,),
               f"planar_slam launches K2 for the pairs and the closures: "
               f"{pipeline[name]}")
@@ -2028,7 +2053,8 @@ def main() -> int:
 
     # The fit's stages on their own (host clock to a synchronize): the fused
     # batch (K2 + the eager top-K re-score), the IRLS refit of the top-K
-    # (weighted NDLT with the 9x9 Jacobi), and the annealed LM polish.
+    # (weighted NDLT with the 9x9 Jacobi, in its kernel), and the annealed
+    # LM polish.
     def host_ms(fn, runs=10):
         fn()
         torch.cuda.synchronize()
@@ -2054,6 +2080,48 @@ def main() -> int:
                 lambda: P.anneal_polish(h_top[0], src, tar, 3.0)),
         },
     }
+    # The IRLS refit of the top-4 in its kernel (irls_refine, one launch)
+    # against its plain version, the eager refit, on the card: the fit's
+    # shape (N = 2,000) and a VO pair's (the first 384 of its matches),
+    # both top-4s of a 2,048-hypothesis fused chunk.
+    from sks_tpu_torch.bench.table8 import median_device_ms
+    from sks_tpu_torch.kernels import irls_cuda as KI
+
+    irls = {}
+    for n in (2000, 384):
+        src_n, tar_n = src[:n], tar[:n]
+        top, _, _ = R._eval_chunk_fused(None, src_n, tar_n, cfg, None)
+        torch.cuda.synchronize()
+        before = K.LAUNCHES["irls_refine"]
+        h_k = R._irls_refine(top, src_n, tar_n, 2, 3.0)
+        torch.cuda.synchronize()
+        launched = K.LAUNCHES["irls_refine"] - before
+        h_e = R._irls_refine_eager(top, src_n, tar_n, 2, 3.0, None,
+                                   "inliers", 9.0, False)
+        _, inl_k = R.score_hypotheses(h_k, src_n, tar_n, 3.0)
+        _, inl_e = R.score_hypotheses(h_e, src_n, tar_n, 3.0)
+        row = {
+            "N": n, "K": top.shape[0], "launches_per_call": launched,
+            "kernel_us": 1e3 * median_device_ms(
+                lambda: KI.irls_refine(top, src_n, tar_n, 2, 3.0), runs=5,
+                reps=20),
+            "kernel_host_ms": host_ms(
+                lambda: R._irls_refine(top, src_n, tar_n, 2, 3.0)),
+            "plain_host_ms": host_ms(
+                lambda: R._irls_refine_eager(top, src_n, tar_n, 2, 3.0, None,
+                                             "inliers", 9.0, False), runs=3),
+            "corner_gap_px": (apply_homography(h_k, corners)
+                              - apply_homography(h_e, corners)
+                              ).norm(dim=-1).max().item(),
+            "mask_flips": int((inl_k != inl_e).sum(-1).max()),
+            "same_bits_twice": torch.equal(
+                h_k, R._irls_refine(top, src_n, tar_n, 2, 3.0)),
+            "moved": not torch.equal(h_k, top)}
+        irls[f"N{n}"] = row
+        check(launched == 1 and row["corner_gap_px"] <= 1e-2
+              and row["mask_flips"] <= 2 and row["same_bits_twice"]
+              and row["moved"], f"irls_refine against the eager refit: {row}")
+    times["irls_refine"] = irls
     # The port's Table 8: every kernel, its plain SoA version and the eager
     # AoS solver at the reference's smallest, middle and largest batches.
     t8 = table8.run_table(batches=(1, 10_000, b1))

@@ -158,6 +158,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.argtypes = [vp, vp, vp, vp, ctypes.c_float, ctypes.c_int, vp, vp,
                        ll, ll, ll, ll, ll, vp]
         fn.restype = ctypes.c_int
+    # h0, src, tar, mask, out, K, N, iters, threshold, magsac, sigma_max,
+    # magsac_k, stream
+    fn = lib.sks_irls_refine_f32
+    fn.argtypes = [vp, vp, vp, vp, vp, ll, ll, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_float, vp]
+    fn.restype = ctypes.c_int
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:

@@ -48,6 +48,7 @@ from sks_tpu_torch.kernels import (
     to_soa,
 )
 from sks_tpu_torch.kernels.aca_cuda import aca_solve_score_soa
+from sks_tpu_torch.kernels.irls_cuda import irls_refine
 from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask, sks_valid_mask
 from sks_tpu_torch.ops.fp64 import residual2_fp64
 from sks_tpu_torch.ops.ndlt import ndlt_h
@@ -423,9 +424,30 @@ def _irls_refine(h0: Tensor, src: Tensor, tar: Tensor, iters: int,
     uses :func:`magsac_weights` instead of a hard threshold.  Padded points
     never receive weight; a refit from fewer than 4 points of weight mass, or
     a non-finite one, keeps the previous model.
+
+    Float32 CUDA inputs without float64 scoring or a gradient to record run
+    in one launch of the kernel ``kernels.irls_cuda.irls_refine`` (counted
+    by ``ransac.irls_kernel``); everything else runs
+    :func:`_irls_refine_eager`, the kernel's plain version.
     """
-    pm = None if point_mask is None else point_mask.to(src.dtype)
     sm = sigma_max if sigma_max is not None else 3.0 * threshold
+    grad = torch.is_grad_enabled() and (
+        h0.requires_grad or src.requires_grad or tar.requires_grad)
+    if (src.is_cuda and not df64 and not grad
+            and h0.dtype == src.dtype == tar.dtype == torch.float32):
+        count("ransac.irls_kernel")
+        magsac = scoring == "magsac"
+        return irls_refine(h0, src, tar, iters, threshold, point_mask,
+                           magsac_k=_MAGSAC_K if magsac else None,
+                           sigma_max=sm if magsac else None)
+    return _irls_refine_eager(h0, src, tar, iters, threshold, point_mask,
+                              scoring, sm, df64)
+
+
+def _irls_refine_eager(h0, src, tar, iters, threshold, point_mask, scoring,
+                       sm, df64):
+    """:func:`_irls_refine` in eager operations (``sm``: sigma_max)."""
+    pm = None if point_mask is None else point_mask.to(src.dtype)
     h = h0
     for t in range(iters):
         # GNC schedule: 2^(iters-2-t) capped to [1, 4] => e.g. [4,2,1,1].

@@ -864,8 +864,9 @@ def test_train_steps_on_cuda_match_cpu_without_host_sync(dev):
 
 def test_pair_parity_launches_k2_once_a_pair(dev):
     """``bench.real_pipeline.pair_parity`` on the card: each pair's fit takes
-    the fused route (one K2 launch), and its corner error against the true
-    H is under the JAX package's 1.5 px ceiling on the easy protocol."""
+    the fused route (one K2 launch, one IRLS refit), and its corner error
+    against the true H is under the JAX package's 1.5 px ceiling on the easy
+    protocol."""
     from sks_tpu_torch.bench import real_pipeline
 
     before = dict(K.LAUNCHES)
@@ -874,7 +875,8 @@ def test_pair_parity_launches_k2_once_a_pair(dev):
     made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
             if K.LAUNCHES[k] != before[k]}
     scored = [r for r in rows if "skipped" not in r]
-    assert made == {"aca_solve_score": len(scored)}, made
+    assert made == {"aca_solve_score": len(scored),
+                    "irls_refine": len(scored)}, made
     assert scored and all(r["corner_err_ours_px"] < 1.5 for r in scored), rows
 
 
@@ -904,3 +906,115 @@ def test_headline_fields(dev):
             assert 0 < out[f"roofline_fraction{suffix}"] <= 1.05, out
         else:
             assert f"roofline_fraction{suffix}" not in out
+
+
+# ---- the IRLS refit of the top-K candidates (csrc/irls.cu) ----------------
+
+
+def _irls_problem(dev, n, masked=False, scoring="inliers", seed=0):
+    """n matches, half of them junk, an optional 90% point mask, and the top-4
+    candidates of a 2,048-hypothesis chunk: the refit's main-path inputs
+    (N = 2,000 a fit; ~384 matches a VO pair)."""
+    from sks_tpu_torch.robust import ransac as R
+
+    g = torch.Generator(device=dev).manual_seed(n + seed)
+    src, tar, _ = random_correspondences(g, (), n, 0.5)
+    tar = tar.clone()
+    tar[:n // 2] = torch.rand((n // 2, 2), generator=g, device=dev) * 640.0
+    mask = (torch.rand(n, generator=g, device=dev) > 0.1) if masked else None
+    cfg = RansacConfig(num_hypotheses=2048, threshold=3.0, scoring=scoring)
+    h_top, _, _ = R._eval_chunk(torch.Generator(device=dev).manual_seed(seed),
+                                src, tar, cfg, mask)
+    return h_top, src, tar, mask
+
+
+def _corner_gap(h1, h2):
+    from sks_tpu_torch.geom.homography import apply_homography
+
+    corners = torch.tensor([[0.0, 0.0], [640.0, 0.0], [640.0, 480.0],
+                            [0.0, 480.0]], device=h1.device)
+    return (apply_homography(h1, corners.to(h1.dtype))
+            - apply_homography(h2.to(h1.device), corners.to(h1.dtype))
+            ).norm(dim=-1).max().item()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("scoring", ["inliers", "msac", "magsac", "lmeds"])
+@pytest.mark.parametrize("n", [2000, 384])
+def test_irls_kernel_matches_the_eager_refit(dev, n, scoring, masked):
+    """One launch refits the 4 candidates through both rounds.  Against the
+    eager refit (its plain version on the card) the only difference is the
+    order of the sums (block sums against an einsum over 2N rows, 3 x 3
+    products, the point loop): the corners within 1e-2 px and the refit's
+    inlier mask within 2 points; the same against the kernel's specification
+    (irls_refine_plain, on the CPU).  Two calls give the same bits (sums in
+    a fixed order, no atomics)."""
+    from sks_tpu_torch.kernels.irls_cuda import irls_refine_plain
+    from sks_tpu_torch.robust import ransac as R
+
+    h_top, src, tar, mask = _irls_problem(dev, n, masked, scoring)
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    hk = R._irls_refine(h_top, src, tar, 2, 3.0, mask, scoring)
+    torch.cuda.synchronize()
+    made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+            if K.LAUNCHES[k] != before[k]}
+    assert made == {"irls_refine": 1}
+    assert hk.shape == (4, 3, 3) and hk.dtype == torch.float32
+    assert not torch.equal(hk, h_top)  # the refit moved the candidates
+    assert torch.equal(hk, R._irls_refine(h_top, src, tar, 2, 3.0, mask,
+                                          scoring))
+    he = R._irls_refine_eager(h_top, src, tar, 2, 3.0, mask, scoring, 9.0,
+                              False)
+    assert _corner_gap(hk, he) <= 1e-2
+    _, inl_k = R.score_hypotheses(hk, src, tar, 3.0, mask)
+    _, inl_e = R.score_hypotheses(he, src, tar, 3.0, mask)
+    assert (inl_k != inl_e).sum(-1).max().item() <= 2
+    weights = ({"magsac_k": R._MAGSAC_K, "sigma_max": 9.0}
+               if scoring == "magsac" else {})
+    hp = irls_refine_plain(h_top.cpu(), src.cpu(), tar.cpu(), 2, 3.0,
+                           None if mask is None else mask.cpu(), **weights)
+    assert _corner_gap(hk.cpu(), hp) <= 1e-2
+
+
+def test_irls_kernel_keeps_nan_and_starved_candidates_and_counts_once(dev):
+    """A NaN candidate and one with no point within the threshold come back
+    bit for bit; under a profiler the refit counts ``ransac.irls_kernel``
+    once a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sks_tpu_torch.robust import ransac as R
+    from sks_tpu_torch.utils import profiling
+
+    h_top, src, tar, _ = _irls_problem(dev, 2000, seed=1)
+    h0 = h_top.clone()
+    h0[1] = torch.nan
+    h0[2] = torch.tensor([[1.0, 0.0, 5e3], [0.0, 1.0, 5e3], [0.0, 0.0, 1.0]],
+                         device=dev)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = R._irls_refine(h0, src, tar, 2, 3.0)
+        out2 = R._irls_refine(h0, src, tar, 2, 3.0)
+    torch.cuda.synchronize()
+    assert profiling.counters().get("ransac.irls_kernel") == 2
+    assert out[1].isnan().all() and torch.equal(out[2], h0[2])
+    assert torch.isfinite(out[[0, 3]]).all()
+    assert torch.equal(out[[0, 2, 3]], out2[[0, 2, 3]])
+
+
+def test_irls_routes_by_what_it_observes(dev):
+    """float64 points, float64 scoring and a gradient to record keep the
+    eager refit (no launch); the wrapper itself raises on float64."""
+    from sks_tpu_torch.kernels.irls_cuda import irls_refine
+    from sks_tpu_torch.robust import ransac as R
+
+    h_top, src, tar, _ = _irls_problem(dev, 384)
+    before = K.LAUNCHES["irls_refine"]
+    R._irls_refine(h_top.double(), src.double(), tar.double(), 2, 3.0)
+    R._irls_refine(h_top, src, tar, 2, 3.0, df64=True)
+    R._irls_refine(h_top.clone().requires_grad_(), src, tar, 2, 3.0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["irls_refine"] == before
+    with pytest.raises(TypeError):
+        irls_refine(h_top.double(), src.double(), tar.double(), 2, 3.0)
+    assert K.LAUNCHES["irls_refine"] == before
