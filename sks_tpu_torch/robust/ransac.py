@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from collections.abc import Sequence
 from dataclasses import dataclass, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -52,6 +53,7 @@ from sks_tpu_torch.kernels.irls_cuda import irls_refine
 from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask, sks_valid_mask
 from sks_tpu_torch.ops.fp64 import residual2_fp64
 from sks_tpu_torch.ops.ndlt import ndlt_h
+from sks_tpu_torch.utils import graphs
 from sks_tpu_torch.utils.profiling import annotate, count
 
 __all__ = [
@@ -785,14 +787,33 @@ def ransac_homography_fused_batch(
             s_soa, t_soa, pts, fused_kernel_threshold(config),
             point_weights=pw, scoring=config.scoring,
         )
-    results = []
+    s4, t4 = (torch.stack(x) for x in zip(*(st for st, _ in draws)))
+    tensors = (counts, s4, t4, src, tar,
+               *(() if point_mask is None else (point_mask,)))
+    tail = partial(_fused_batch_tail, config)
     with annotate("ransac/tail"):
-        for i, ((s4, t4), _) in enumerate(draws):
-            top = _fused_top(counts[i], s4, t4, src[i], tar[i], config,
-                             masks[i])
-            results.append(_refine_and_pack(*top, src[i], tar[i], config,
-                                            masks[i]))
-    return results
+        if graphs.graphable(*tensors):
+            h, inl, ninl, score = graphs.replay(("fused_tail", config), tail,
+                                                *tensors)
+        else:
+            h, inl, ninl, score = tail(*tensors)
+    return [RansacResult(h=h[i], inlier_mask=inl[i], num_inliers=ninl[i],
+                         score=score[i]) for i in pairs]
+
+
+def _fused_batch_tail(config, counts, s4, t4, src, tar, point_mask=None):
+    """The tail of a fused batch, pair by pair: each pair's top-K re-score
+    (:func:`_fused_top`) and :func:`_refine_and_pack`.  Nothing is read back
+    and every shape is fixed, so on the card it replays as one CUDA graph
+    (``utils.graphs``).  Returns the P results' fields stacked: h (P, 3, 3),
+    inlier_mask (P, N), num_inliers (P,), score (P,)."""
+    results = []
+    for i in range(src.shape[0]):
+        pm = None if point_mask is None else point_mask[i]
+        top = _fused_top(counts[i], s4[i], t4[i], src[i], tar[i], config, pm)
+        results.append(_refine_and_pack(*top, src[i], tar[i], config, pm))
+    return tuple(torch.stack([getattr(r, f) for r in results])
+                 for f in ("h", "inlier_mask", "num_inliers", "score"))
 
 
 #: Chunk size of the adaptive loop from which a ``config.fused`` stage runs

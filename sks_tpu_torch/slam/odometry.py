@@ -35,11 +35,16 @@ from sks_tpu_torch.robust.ransac import (
 )
 from sks_tpu_torch.slam.posegraph import PoseGraph, _inv_se3, optimize_posegraph
 from sks_tpu_torch.slam.tracking import esm_guard, esm_polish_pair_symmetric
-from sks_tpu_torch.utils.profiling import annotate
+from sks_tpu_torch.utils.profiling import annotate, count
 from sks_tpu_torch.utils.streams import CLOSURE_STREAM_OFFSET, pair_generators
 
 __all__ = ["vo_trajectory", "chain_poses", "closure_candidates",
-           "fit_pair", "fit_pairs", "chain_metric", "assemble_trajectory"]
+           "fit_pair", "fit_pairs", "chain_metric", "assemble_trajectory",
+           "CLOSURE_MIN_INLIERS"]
+
+#: A loop closure with fewer inliers is a misfit, not a constraint: its
+#: pose-graph edge gets weight 0.
+CLOSURE_MIN_INLIERS = 12
 
 
 def _streams(generator, n: int, like: Tensor, offset: int = 0):
@@ -94,11 +99,17 @@ def _esm_select(h, inlier_mask, f1, f2, p1, p2, pm, config, esm_iters):
       h: (P, 3, 3) RANSAC models; inlier_mask: (P, N) their inliers.
       f1, f2: (P, H, W) frames of each pair; p1, p2: (P, N, 2); pm: (P, N).
 
+    Counts ``esm.models`` (P) and ``esm.kept`` (the models whose polish the
+    guard accepted, summed from the guard's device mask) while a profiler
+    records.
+
     Returns (h (P, 3, 3), num_inliers (P,) int32).
     """
     with annotate("vo/esm"):
         h_esm, _ = esm_polish_pair_symmetric(f1, f2, h, iters=esm_iters)
         ok = esm_guard(h, h_esm, p1, p2, inlier_mask)
+        count("esm.models", h.shape[0])
+        count("esm.kept", ok)
         inl = torch.stack([
             score_hypotheses(torch.stack([h[i], h_esm[i]]), p1[i], p2[i],
                              config.threshold, pm[i], config.scoring,
@@ -263,7 +274,9 @@ def vo_trajectory(
 
     Returns:
       dict: poses (T, 4, 4) cam->world, rel (T-1, 4, 4), num_inliers (T-1,),
-      and (with closures) closure_inliers (E,).
+      and (with closures) closure_inliers (E,) and closure_rel (E, 4, 4),
+      each closure's metric cam_i -> cam_j, the measurement its pose-graph
+      edge holds.
     """
     t_minus_1 = pts1.shape[0]
     if t_minus_1 >= CLOSURE_STREAM_OFFSET:
@@ -291,10 +304,11 @@ def vo_trajectory(
         cpl = closure_pairs.long()
         if use_esm:
             esm.update(frames1=frames[cpl[:, 0]], frames2=frames[cpl[:, 1]])
-        r_c, tt_c, _, ninl_c = fit_pairs(
-            _streams(generator, e, pts1, offset=CLOSURE_STREAM_OFFSET),
-            closure_pts1, closure_pts2, cm, k_mat, config, plane_normal,
-            closure_indices, **esm)
+        with annotate("vo/closure"):
+            r_c, tt_c, _, ninl_c = fit_pairs(
+                _streams(generator, e, pts1, offset=CLOSURE_STREAM_OFFSET),
+                closure_pts1, closure_pts2, cm, k_mat, config, plane_normal,
+                closure_indices, **esm)
         closure = (r_c, tt_c, ninl_c, closure_pairs)
 
     return assemble_trajectory(r, t_over_d, n, ninl, plane_depth, smooth,
@@ -311,7 +325,9 @@ def assemble_trajectory(r, t_over_d, n, ninl, plane_depth: float,
 
     Args:
       closure: optional ``(r_c, tt_c, ninl_c, cp)`` — closure-pair rotations,
-        t/d vectors, inlier counts, and (E, 2) integer frame pairs.
+        t/d vectors, inlier counts, and (E, 2) integer frame pairs.  The
+        closures at ``CLOSURE_MIN_INLIERS`` or more are counted in
+        ``vo.closures_kept`` (from the device mask) while a profiler records.
     """
     t_minus_1 = r.shape[0]
     rel, poses, depths = chain_metric(r, t_over_d, n, plane_depth)
@@ -325,6 +341,9 @@ def assemble_trajectory(r, t_over_d, n, ninl, plane_depth: float,
         t_c = tt_c * depths[cp[:, 0]][:, None]
         rel_c = _rt_to_se3(r_c, t_c)  # cam_i -> cam_j
         out["closure_inliers"] = ninl_c
+        out["closure_rel"] = rel_c
+        kept = ninl_c >= CLOSURE_MIN_INLIERS
+        count("vo.closures_kept", kept)
 
     if smooth:
         ar = torch.arange(t_minus_1, device=r.device)
@@ -334,8 +353,7 @@ def assemble_trajectory(r, t_over_d, n, ninl, plane_depth: float,
         if rel_c is not None:
             edges = torch.cat([edges, cp], dim=0)
             meas = torch.cat([meas, _inv_se3(rel_c)], dim=0)
-            # A closure with too few inliers is a misfit, not a constraint.
-            w_c = torch.where(ninl_c >= 12, ninl_c,
+            w_c = torch.where(kept, ninl_c,
                               torch.zeros_like(ninl_c)).to(poses.dtype)
             weights = torch.cat([weights, w_c], dim=0)
         graph = PoseGraph(poses=poses, edges=edges, meas=meas,

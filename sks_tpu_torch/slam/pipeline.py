@@ -158,7 +158,9 @@ def planar_slam(
 
     Returns:
       dict: poses (T, 4, 4), rel (T-1, 4, 4), num_inliers (T-1,),
-      closure_inliers (E,).
+      closure_inliers (E,), closure_rel (E, 4, 4) (each closure's metric
+      cam_i -> cam_j, scaled by the plane depth at frame i: the measurement
+      of its pose-graph edge).
     """
     frames, k_mat = _inputs(frames, k_mat)
     t = frames.shape[0]
@@ -179,6 +181,7 @@ def planar_slam(
         out = vo_trajectory(generator, p1a, p2a, k_mat, config, **kw)
         out["closure_inliers"] = torch.zeros((0,), dtype=torch.int32,
                                              device=dev)
+        out["closure_rel"] = out["rel"][:0]
         return out
     return vo_trajectory(
         generator, p1a[:t - 1], p2a[:t - 1], k_mat, config,
@@ -329,4 +332,5 @@ def sharded_planar_slam(
     if closure is None:
         out["closure_inliers"] = torch.zeros((0,), dtype=torch.int32,
                                              device=frames.device)
+        out["closure_rel"] = out["rel"][:0]
     return out

@@ -8,7 +8,8 @@ relative-pose measurements and weights.  Residual per edge:
 The Gauss-Newton normal equations are applied matrix-free with
 ``torch.func.jvp`` / ``torch.func.vjp`` (products with J and J^T, no dense
 J) and solved by a fixed number of conjugate-gradient steps; nothing is read
-back to the host.
+back to the host.  On the card the solve, ~900 small launches a CG step, is
+replayed from a CUDA graph (``utils.graphs``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from torch import Tensor
 
 from sks_tpu_torch.geom.lie import mm_small, se3_exp, se3_log
+from sks_tpu_torch.utils import graphs
 
 __all__ = ["PoseGraph", "posegraph_residuals", "optimize_posegraph",
            "optimize_posegraph_dense", "ate_rmse"]
@@ -94,14 +96,9 @@ def _step(graph: PoseGraph, dx: Tensor) -> PoseGraph:
                      weights=graph.weights)
 
 
-def optimize_posegraph(
-    graph: PoseGraph,
-    gn_iters: int = 10,
-    cg_iters: int = 50,
-    damping: float = 1e-6,
-    fix_first: bool = True,
-) -> PoseGraph:
-    """Matrix-free Gauss-Newton: J^T J dx = -J^T r via jvp/vjp + CG."""
+def _solve(graph: PoseGraph, gn_iters: int, cg_iters: int, damping: float,
+           fix_first: bool) -> Tensor:
+    """The relaxed poses (K, 4, 4), eagerly."""
     k = graph.poses.shape[0]
     for _ in range(gn_iters):
         zero = torch.zeros((k, 6), dtype=graph.poses.dtype,
@@ -116,7 +113,32 @@ def optimize_posegraph(
 
         dx = _cg(jtjv, -g.reshape(-1), cg_iters).reshape(k, 6)
         graph = _step(graph, dx)
-    return graph
+    return graph.poses
+
+
+def optimize_posegraph(
+    graph: PoseGraph,
+    gn_iters: int = 10,
+    cg_iters: int = 50,
+    damping: float = 1e-6,
+    fix_first: bool = True,
+) -> PoseGraph:
+    """Matrix-free Gauss-Newton: J^T J dx = -J^T r via jvp/vjp + CG.
+
+    On the card (with no gradient or transform to follow) the solve replays
+    a CUDA graph captured at the first call of its shapes and settings
+    (:func:`sks_tpu_torch.utils.graphs.replay`).
+    """
+    settings = (gn_iters, cg_iters, damping, fix_first)
+    tensors = (graph.poses, graph.edges, graph.meas, graph.weights)
+    if graphs.graphable(*tensors):
+        poses, = graphs.replay(
+            ("posegraph", *settings),
+            lambda *t: (_solve(PoseGraph(*t), *settings),), *tensors)
+    else:
+        poses = _solve(graph, *settings)
+    return PoseGraph(poses=poses, edges=graph.edges, meas=graph.meas,
+                     weights=graph.weights)
 
 
 def optimize_posegraph_dense(

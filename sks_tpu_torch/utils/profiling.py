@@ -68,8 +68,10 @@ def annotate(name: str):
 def count(name: str, value=1) -> None:
     """Add ``value`` to the counter ``name`` while a profiler records.
 
-    ``value`` may be a 0-d device tensor: it is kept as it is and read only
-    by :func:`counters`, after the window, so a counter adds no host read.
+    ``value`` may be a device tensor: it is kept as it is and summed and
+    read only by :func:`counters`, after the window, so a counter adds no
+    host read, and with no profiler recording no work at all (pass a mask,
+    not its sum).
     """
     if _recording():
         _COUNTS.setdefault(name, []).append(value)
@@ -84,7 +86,7 @@ def counters() -> dict:
     window, or reads every window since the last reset.  Until then each
     counted device value stays alive.
     """
-    return {name: sum(v.item() if isinstance(v, torch.Tensor) else v
+    return {name: sum(v.sum().item() if isinstance(v, torch.Tensor) else v
                       for v in values)
             for name, values in _COUNTS.items()}
 

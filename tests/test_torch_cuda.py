@@ -14,7 +14,8 @@ points with one pair and a pair axis of 8; the six K5 kinds at B = 2^20 and
 package's benchmark configuration on 6 frames rendered at (240, 320): one K2
 launch a fused batch, the card against the CPU, and no host sync; with the
 dense ESM polish too (``planar_slam``'s default), and the batched polish of
-5 pairs against the CPU.  Bundle adjustment in float64 against the CPU.
+5 pairs against the CPU.  The pose graph's captured solve and a fused
+batch's captured tail against their eager runs.  Bundle adjustment in float64 against the CPU.
 The image-grounded benchmark (``bench/real_pipeline.py``): K2 once a pair
 fit and once a ``sequence_ate``; the headline's fields, every bandwidth
 fraction at most 1.05 of the card's spec.
@@ -709,6 +710,86 @@ def test_vo_with_esm_makes_no_host_sync(vo_sequence):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(slam["poses"]).all()
     assert torch.isfinite(out["poses"]).all()
+
+
+def test_posegraph_on_cuda_replays_one_graph_equal_to_the_eager_solve(dev):
+    """optimize_posegraph at planar_slam's shapes (16 poses, 15 odometry
+    edges and 20 closures, 5 x 30): captured once, at the first call, then
+    replayed with nothing read back; each replay within 1e-5 of the eager
+    solve of its own inputs (the same kernels in the same order), and the
+    relaxation moves the poses."""
+    from sks_tpu_torch.geom.lie import se3_exp
+    from sks_tpu_torch.slam import posegraph as PG
+    from sks_tpu_torch.utils import graphs
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    i = torch.arange(16, device=dev)
+    edges = torch.cat([torch.stack([i[:-1], i[1:]], 1),
+                       torch.stack([i[:-4], i[4:]], 1),
+                       torch.stack([i[:-8], i[8:]], 1)])
+
+    def graph():
+        return PG.PoseGraph(
+            poses=se3_exp(0.1 * torch.randn((16, 6), generator=gen,
+                                            device=dev)),
+            edges=edges,
+            meas=se3_exp(0.1 * torch.randn((35, 6), generator=gen,
+                                           device=dev)),
+            weights=20 + 200 * torch.rand(35, generator=gen, device=dev))
+
+    graphs._GRAPHS.clear()
+    PG.optimize_posegraph(graph(), gn_iters=5, cg_iters=30)
+    assert len(graphs._GRAPHS) == 1
+    for g in (graph(), graph()):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = PG.optimize_posegraph(g, gn_iters=5, cg_iters=30).poses
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = PG._solve(g, 5, 30, 1e-6, True)
+        assert (got - want).abs().max().item() <= 1e-5
+        assert (got - g.poses).abs().max().item() > 0.01
+    assert len(graphs._GRAPHS) == 1
+
+
+def test_fused_batch_tail_replays_one_graph_equal_to_the_eager_tail(
+        dev, monkeypatch):
+    """The per-pair tail of a fused batch of 4 masked pairs (N = 384, 50%
+    outliers, VO's RANSAC configuration): captured once, at the first call,
+    then replayed with nothing read back; each pair's inlier mask and count
+    as the eager tail's and its model within 1e-4 at the image's corners
+    (the same kernels in the same order), and within 1 px of the truth."""
+    from sks_tpu_torch.robust import ransac as R
+    from sks_tpu_torch.utils import graphs
+
+    pairs = [_contaminated(dev, 31 + i, 384, 0.5) for i in range(4)]
+    src, tar = (torch.stack([p[k] for p in pairs]) for k in (0, 1))
+    mask = torch.ones((4, 384), dtype=torch.bool, device=dev)
+    mask[:, 352:] = False
+    config = _vo_config(True)
+
+    def fit():
+        gens = [torch.Generator(device=dev).manual_seed(i) for i in range(4)]
+        return R.ransac_homography_fused_batch(gens, src, tar, config, mask)
+
+    graphs._GRAPHS.clear()
+    fit()
+    assert len(graphs._GRAPHS) == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fit()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(graphs._GRAPHS) == 1
+    monkeypatch.setattr(graphs, "graphable", lambda *t: False)
+    want = fit()
+    for g, w, p in zip(got, want, pairs):
+        assert torch.equal(g.inlier_mask, w.inlier_mask)
+        assert g.num_inliers.item() == w.num_inliers.item()
+        assert _corner_err(g.h, w.h) <= 1e-4
+        assert _corner_err(g.h, p[2]) < 1.0
 
 
 def test_bundle_adjustment_on_cuda_matches_cpu(dev):

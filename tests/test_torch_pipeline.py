@@ -143,9 +143,12 @@ def test_planar_slam_matches_jax_from_pixels(seq, draws):
     out_t = sks_tpu_torch.planar_slam(None, T(frames), T(k_mat), _cfg(JCFG),
                                       strides=STRIDES, esm_iters=0, **KW,
                                       indices=T(draws))
-    assert set(out_t) == set(out_j) == {"poses", "rel", "num_inliers",
-                                        "closure_inliers"}
+    # The port also returns each closure's metric measurement.
+    assert set(out_j) == {"poses", "rel", "num_inliers", "closure_inliers"}
+    assert set(out_t) == set(out_j) | {"closure_rel"}
     assert out_t["closure_inliers"].shape == out_j["closure_inliers"].shape
+    assert out_t["closure_rel"].shape == (*out_j["closure_inliers"].shape,
+                                          4, 4)
     np.testing.assert_allclose(to_np(out_t["poses"]),
                                np.asarray(out_j["poses"]), atol=5e-3)
     for name in ("num_inliers", "closure_inliers"):
@@ -213,6 +216,7 @@ def test_pipeline_recovers_a_rendered_trajectory():
     few = sks_tpu_torch.planar_slam(1, frames[:3], k_mat, cfg, strides=(4,),
                                     plane_depth=3.0, esm_iters=0)
     assert few["closure_inliers"].shape == (0,)
+    assert few["closure_rel"].shape == (0, 4, 4)
     assert few["poses"].shape == (3, 4, 4)
 
 

@@ -19,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import sks_tpu_torch
 import sks_tpu_torch.robust.ransac as tr
+import sks_tpu_torch.slam.odometry as odometry
 from sks_tpu_torch.data.images import planar_sequence
 from sks_tpu_torch.utils import profiling
 from sks_tpu_torch.utils.synth import random_correspondences
@@ -180,6 +181,59 @@ def test_the_vo_routes_nest_their_fit_spans(frames, fused):
     assert counts["ransac.hypotheses"] == 2 * B
 
 
+@pytest.fixture(scope="module")
+def sweep():
+    gen = torch.Generator().manual_seed(1)
+    frames, _, k_mat = planar_sequence(gen, 10, (96, 128))
+    return frames, k_mat
+
+
+def _slam(sweep, smooth=True):
+    frames, k_mat = sweep
+    # Without the LM polish: the spans do not depend on it, and its
+    # launches would fill the trace.
+    cfg = dataclasses.replace(CFG, fused=True, threshold=2.0,
+                              final_polish=False)
+    return sks_tpu_torch.planar_slam(0, frames, k_mat, cfg, num_corners=64,
+                                     num_octaves=1, plane_depth=3.0,
+                                     strides=(4, 8), smooth=smooth,
+                                     esm_iters=1)
+
+
+def test_planar_slam_opens_the_closure_esm_and_posegraph_spans(
+        sweep, monkeypatch):
+    """The closures' fits (their K2 batch, tails and polish) run inside
+    ``vo/closure``; each batch's polish in its ``vo/esm``; the relaxation in
+    ``vo/posegraph``.  The polish counts its models (one a pair) and those
+    the guard kept; the closures at the 12-inlier gate are counted.  The
+    relaxation runs one Gauss-Newton step of 2 CG steps here: its length
+    does not touch the spans, and its 150 steps would fill the trace."""
+    relax = odometry.optimize_posegraph
+    monkeypatch.setattr(odometry, "optimize_posegraph",
+                        lambda graph, **kw: relax(graph, gn_iters=1,
+                                                  cg_iters=2))
+    out, spans, counts = _traced(lambda: _slam(sweep))
+    edges = _edges(spans)
+    e = out["closure_inliers"].shape[0]
+    pairs = out["num_inliers"].shape[0] + e
+    assert e == 8 and len(_names(spans, "vo/closure")) == 1
+    assert len(_names(spans, "vo/esm")) == 2
+    assert len(_names(spans, "vo/posegraph")) == 1
+    assert {(None, "vo/esm"), ("vo/closure", "vo/esm"),
+            ("vo/closure", "ransac/k2"), ("vo/closure", "ransac/tail"),
+            ("vo/closure", "vo/pose"), (None, "vo/posegraph")} <= set(edges)
+    assert counts["esm.models"] == pairs
+    assert 0 <= counts["esm.kept"] <= counts["esm.models"]
+    kept = int((out["closure_inliers"] >= odometry.CLOSURE_MIN_INLIERS).sum())
+    assert counts["vo.closures_kept"] == kept <= e
+
+
+def test_planar_slam_counts_nothing_with_no_profiler(sweep):
+    profiling.reset_counters()
+    _slam(sweep, smooth=False)
+    assert profiling.counters() == {}
+
+
 def test_nothing_is_counted_or_spanned_with_no_profiler():
     assert not torch.autograd._profiler_enabled()
     assert isinstance(profiling.annotate("ransac/fit"),
@@ -204,7 +258,9 @@ def test_counters_sum_device_values_after_the_window():
         profiling.count("a", 2)
         profiling.count("b", torch.tensor(1.5))
         profiling.count("b", torch.tensor(2.0))
-    assert profiling.counters() == {"a": 3, "b": 3.5}
+        # A mask is summed at the read, not where it is counted.
+        profiling.count("c", torch.tensor([True, False, True]))
+    assert profiling.counters() == {"a": 3, "b": 3.5, "c": 2}
     profiling.reset_counters()
     assert profiling.counters() == {}
 
