@@ -53,30 +53,12 @@
 // does not synchronise, and returns cudaGetLastError().
 
 #include "baselines.cuh"
+#include "tail.cuh"
 
 namespace {
 
-constexpr int kIrlsThreads = 256;
-constexpr int kIrlsWarps = kIrlsThreads / 32;
 constexpr int kSweeps = 8;  // linalg.py::jacobi_eigh's default
 constexpr int kSums = 24;   // S1, Sx, Sy, Sd: 6 entries each
-constexpr unsigned kFull = 0xffffffffu;
-
-// The squared symmetric transfer error of one point (ransac.py::_residual2:
-// geom/homography.py::apply_homography of H and of its adjugate inv_h).
-__device__ __forceinline__ float residual2(const float (&h)[9],
-                                           const float (&a)[9], float x,
-                                           float y, float xp, float yp) {
-  const float w = h[6] * x + h[7] * y + h[8];
-  const float inv_w = 1.0f / w;
-  const float dx = (h[0] * x + h[1] * y + h[2]) * inv_w - xp;
-  const float dy = (h[3] * x + h[4] * y + h[5]) * inv_w - yp;
-  const float wr = a[6] * xp + a[7] * yp + a[8];
-  const float inv_wr = 1.0f / wr;
-  const float ex = (a[0] * xp + a[1] * yp + a[2]) * inv_wr - x;
-  const float ey = (a[3] * xp + a[4] * yp + a[5]) * inv_wr - y;
-  return (dx * dx + dy * dy) + (ex * ex + ey * ey);
-}
 
 // What one round needs of the current model and of the scoring.
 struct Round {
@@ -90,15 +72,7 @@ struct Round {
   __device__ __forceinline__ void set(const float* hs) {
 #pragma unroll
     for (int k = 0; k < 9; ++k) h[k] = hs[k];
-    a[0] = h[4] * h[8] - h[5] * h[7];
-    a[1] = h[2] * h[7] - h[1] * h[8];
-    a[2] = h[1] * h[5] - h[2] * h[4];
-    a[3] = h[5] * h[6] - h[3] * h[8];
-    a[4] = h[0] * h[8] - h[2] * h[6];
-    a[5] = h[2] * h[3] - h[0] * h[5];
-    a[6] = h[3] * h[7] - h[4] * h[6];
-    a[7] = h[1] * h[6] - h[0] * h[7];
-    a[8] = h[0] * h[4] - h[1] * h[3];
+    adjugate(h, a);
   }
 
   // Point i's weight.  Every comparison keeps the eager op's strictness: a
@@ -118,33 +92,6 @@ struct Round {
     return mask ? w * mask[i] : w;
   }
 };
-
-// Sums v over the block into out (shared, M floats), in a fixed order: a
-// shuffle tree within each warp, then the warps in order.  Every thread
-// calls it; out is read after it returns.
-template <int M>
-__device__ __forceinline__ void block_sum(float (&v)[M],
-                                          float (*red)[kSums], float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[m] = v[m] + __shfl_down_sync(kFull, v[m], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) red[warp][m] = v[m];
-  }
-  __syncthreads();
-  if (threadIdx.x < M) {
-    float s = red[0][threadIdx.x];
-#pragma unroll
-    for (int w = 1; w < kIrlsWarps; ++w) s = s + red[w][threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
 
 // The weighted sums of the 6 unique entries of p p^T, p = (x, y, 1), under
 // weight om: ndlt.py::ndlt_core's wsum_ppt, one point's terms.
@@ -176,14 +123,14 @@ __device__ __forceinline__ float normal_entry(const float* sums, int r,
 
 // One candidate a block: `iters` rounds of the refit of h0[blockIdx.x] into
 // out[blockIdx.x] (both (K, 3, 3)).
-__global__ void __launch_bounds__(kIrlsThreads)
+__global__ void __launch_bounds__(kTailThreads)
 irls_refine_kernel(const float* __restrict__ h0,
                    const float* __restrict__ src,
                    const float* __restrict__ tar,
                    const float* __restrict__ mask, float* __restrict__ out,
                    long long n, int iters, float threshold, int magsac,
                    float sigma_max, float magsac_k) {
-  __shared__ float red[kIrlsWarps][kSums];
+  __shared__ float red[kTailWarps][kSums];
   __shared__ float sums[kSums];
   __shared__ float hs[9];      // the current model
   __shared__ float am[9][9];   // the normal matrix, rotated in place
@@ -207,7 +154,7 @@ irls_refine_kernel(const float* __restrict__ h0,
 
     // Pass 1: the weight mass and the weighted centroids.
     float s1[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (long long i = tid; i < n; i += kIrlsThreads) {
+    for (long long i = tid; i < n; i += kTailThreads) {
       const float x = src[2 * i], y = src[2 * i + 1];
       const float xp = tar[2 * i], yp = tar[2 * i + 1];
       const float w = m.weight(i, x, y, xp, yp);
@@ -224,7 +171,7 @@ irls_refine_kernel(const float* __restrict__ h0,
 
     // Pass 2: the mean absolute deviations -> the Hartley scales.
     float s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (long long i = tid; i < n; i += kIrlsThreads) {
+    for (long long i = tid; i < n; i += kTailThreads) {
       const float x = src[2 * i], y = src[2 * i + 1];
       const float xp = tar[2 * i], yp = tar[2 * i + 1];
       const float w = m.weight(i, x, y, xp, yp);
@@ -243,7 +190,7 @@ irls_refine_kernel(const float* __restrict__ h0,
     float s3[kSums];
 #pragma unroll
     for (int k = 0; k < kSums; ++k) s3[k] = 0.0f;
-    for (long long i = tid; i < n; i += kIrlsThreads) {
+    for (long long i = tid; i < n; i += kTailThreads) {
       const float x = src[2 * i], y = src[2 * i + 1];
       const float xp = tar[2 * i], yp = tar[2 * i + 1];
       const float w = m.weight(i, x, y, xp, yp);
@@ -357,7 +304,7 @@ int sks_irls_refine_f32(const void* h0, const void* src, const void* tar,
                         float sigma_max, float magsac_k, void* stream) {
   if (k < 1 || k > 2147483647LL || n < 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  irls_refine_kernel<<<static_cast<unsigned>(k), kIrlsThreads, 0,
+  irls_refine_kernel<<<static_cast<unsigned>(k), kTailThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(h0), static_cast<const float*>(src),
       static_cast<const float*>(tar), static_cast<const float*>(mask),

@@ -164,6 +164,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [vp, vp, vp, vp, vp, ll, ll, ctypes.c_int, ctypes.c_float,
                    ctypes.c_int, ctypes.c_float, ctypes.c_float, vp]
     fn.restype = ctypes.c_int
+    # h0, src, tar, mask, wbuf, out, N, threshold, levels, n_levels, iters,
+    # stream
+    fn = lib.sks_anneal_polish_f32
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ctypes.c_float,
+                   ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+                   vp]
+    fn.restype = ctypes.c_int
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:

@@ -23,7 +23,7 @@ from sks_tpu_torch.kernels._build import (
 #: Kernel launches per kernel since the last reset (plain runs not counted).
 LAUNCHES = dict.fromkeys(
     ("aca_solve_score", *SOLVE_KERNELS, *(f"fp64_{k}" for k in FP64_KINDS),
-     "irls_refine"), 0)
+     "irls_refine", "anneal_polish"), 0)
 
 _STORAGE = (torch.float32, torch.bfloat16)
 

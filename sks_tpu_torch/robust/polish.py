@@ -5,6 +5,8 @@ re-polished at a shrinking inlier threshold (1.0x, 0.7x, 0.5x of the user
 threshold), each level re-deriving its consensus from the current model and
 running weighted Gauss-Newton/LM on the forward reprojection error.  Fixed
 iteration counts and ``torch.where`` accept/reject: no host synchronisation.
+On float32 CUDA tensors the whole annealed polish is one launch of the kernel
+``kernels.polish_cuda.anneal_polish``.
 """
 
 from __future__ import annotations
@@ -12,7 +14,9 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from sks_tpu_torch.kernels import polish_cuda
 from sks_tpu_torch.ops.ndlt import _hartley, _t_inv_matrix, _t_matrix
+from sks_tpu_torch.utils.profiling import count
 
 __all__ = ["gn_refine_h", "anneal_polish"]
 
@@ -123,7 +127,27 @@ def anneal_polish(
     the symmetric transfer error) and LM it on that set (:func:`gn_refine_h`).
     A level whose consensus falls under 8 points or under 25% of the first
     level's mass is skipped (branch-free).
+
+    Float32 CUDA inputs with no gradient to record and no torch.func
+    transform active run in one launch of the kernel
+    ``kernels.polish_cuda.anneal_polish`` (counted by
+    ``ransac.polish_kernel``); everything else runs
+    :func:`_anneal_polish_eager`.
     """
+    grad = torch.is_grad_enabled() and (
+        h.requires_grad or src.requires_grad or tar.requires_grad)
+    if (src.is_cuda and not grad
+            and not torch._C._are_functorch_transforms_active()
+            and h.dtype == src.dtype == tar.dtype == torch.float32):
+        count("ransac.polish_kernel")
+        return polish_cuda.anneal_polish(h, src, tar, threshold, point_mask,
+                                         levels, iters)
+    return _anneal_polish_eager(h, src, tar, threshold, point_mask, levels,
+                                iters)
+
+
+def _anneal_polish_eager(h, src, tar, threshold, point_mask, levels, iters):
+    """:func:`anneal_polish` in eager operations."""
     from sks_tpu_torch.robust.ransac import _residual2
 
     dt = src.dtype

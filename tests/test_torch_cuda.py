@@ -756,10 +756,11 @@ def test_posegraph_on_cuda_replays_one_graph_equal_to_the_eager_solve(dev):
 def test_fused_batch_tail_replays_one_graph_equal_to_the_eager_tail(
         dev, monkeypatch):
     """The per-pair tail of a fused batch of 4 masked pairs (N = 384, 50%
-    outliers, VO's RANSAC configuration): captured once, at the first call,
-    then replayed with nothing read back; each pair's inlier mask and count
-    as the eager tail's and its model within 1e-4 at the image's corners
-    (the same kernels in the same order), and within 1 px of the truth."""
+    outliers, VO's RANSAC configuration), the IRLS and polish kernels among
+    its launches: captured once, at the first call, then replayed with
+    nothing read back; each pair's inlier mask and count as the eager tail's
+    and its model within 1e-4 at the image's corners (the same kernels in
+    the same order), and within 1 px of the truth."""
     from sks_tpu_torch.robust import ransac as R
     from sks_tpu_torch.utils import graphs
 
@@ -774,8 +775,12 @@ def test_fused_batch_tail_replays_one_graph_equal_to_the_eager_tail(
         return R.ransac_homography_fused_batch(gens, src, tar, config, mask)
 
     graphs._GRAPHS.clear()
+    before = K.LAUNCHES["anneal_polish"]
     fit()
     assert len(graphs._GRAPHS) == 1
+    # The polish kernel, once a pair in the eager run before the capture and
+    # once a pair under it; the replay launches the captured kernels.
+    assert K.LAUNCHES["anneal_polish"] == before + 2 * 4
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -783,8 +788,10 @@ def test_fused_batch_tail_replays_one_graph_equal_to_the_eager_tail(
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert len(graphs._GRAPHS) == 1
+    assert K.LAUNCHES["anneal_polish"] == before + 2 * 4
     monkeypatch.setattr(graphs, "graphable", lambda *t: False)
     want = fit()
+    assert K.LAUNCHES["anneal_polish"] == before + 3 * 4
     for g, w, p in zip(got, want, pairs):
         assert torch.equal(g.inlier_mask, w.inlier_mask)
         assert g.num_inliers.item() == w.num_inliers.item()
@@ -945,7 +952,8 @@ def test_train_steps_on_cuda_match_cpu_without_host_sync(dev):
 
 def test_pair_parity_launches_k2_once_a_pair(dev):
     """``bench.real_pipeline.pair_parity`` on the card: each pair's fit takes
-    the fused route (one K2 launch, one IRLS refit), and its corner error
+    the fused route (one K2 launch, one IRLS refit, one polish), and its
+    corner error
     against the true H is under the JAX package's 1.5 px ceiling on the easy
     protocol."""
     from sks_tpu_torch.bench import real_pipeline
@@ -957,7 +965,8 @@ def test_pair_parity_launches_k2_once_a_pair(dev):
             if K.LAUNCHES[k] != before[k]}
     scored = [r for r in rows if "skipped" not in r]
     assert made == {"aca_solve_score": len(scored),
-                    "irls_refine": len(scored)}, made
+                    "irls_refine": len(scored),
+                    "anneal_polish": len(scored)}, made
     assert scored and all(r["corner_err_ours_px"] < 1.5 for r in scored), rows
 
 
@@ -1099,3 +1108,143 @@ def test_irls_routes_by_what_it_observes(dev):
     with pytest.raises(TypeError):
         irls_refine(h_top.double(), src.double(), tar.double(), 2, 3.0)
     assert K.LAUNCHES["irls_refine"] == before
+
+
+# ---- the annealed LM polish of the selected model (csrc/polish.cu) --------
+
+POLISH_FIXTURES = ["clean2000", "clean384", "o50_2000", "o50_384", "padded",
+                   "skip_mass", "skip_quarter"]
+
+
+def _polish_problem(dev, name):
+    """A fixture of ``test_torch_polish.py`` (built on the CPU, moved to the
+    card): (h, src, tar, mask)."""
+    from test_torch_polish import _problem
+
+    return tuple(None if t is None else t.to(dev) for t in _problem(name))
+
+
+@pytest.mark.parametrize("name", POLISH_FIXTURES)
+def test_polish_kernel_matches_its_plain_version_and_the_eager_polish(
+        dev, name):
+    """One launch polishes the model through 3 levels of 8 LM steps.  Against
+    its plain version (on the CPU) it differs in the order of the sums over
+    points only; against the eager polish on the card also in the order of
+    the normal equations' sums and the LU's arithmetic (cuSOLVER's).  Both
+    within 1e-3 px at the image's corners: a CPU emulation of the kernel's
+    256 threads read at most 2.4e-4 px from the plain version on these
+    fixtures, and the plain version 1.4e-4 px from the eager polish.  Two
+    calls give the same bits (sums in a fixed order, no atomics)."""
+    from test_torch_polish import ITERS, LEVELS
+
+    from sks_tpu_torch.kernels.polish_cuda import anneal_polish_plain
+    from sks_tpu_torch.robust import polish as P
+
+    h, src, tar, mask = _polish_problem(dev, name)
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    hk = P.anneal_polish(h, src, tar, 3.0, mask)
+    torch.cuda.synchronize()
+    made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+            if K.LAUNCHES[k] != before[k]}
+    assert made == {"anneal_polish": 1}
+    assert hk.shape == (3, 3) and hk.dtype == torch.float32
+    assert torch.equal(hk, P.anneal_polish(h, src, tar, 3.0, mask))
+    he = P._anneal_polish_eager(h, src, tar, 3.0, mask, LEVELS, ITERS)
+    assert _corner_gap(hk, he) <= 1e-3
+    hp = anneal_polish_plain(h.cpu(), src.cpu(), tar.cpu(), 3.0,
+                             None if mask is None else mask.cpu(), LEVELS,
+                             ITERS)
+    assert _corner_gap(hk.cpu(), hp) <= 1e-3
+
+
+@pytest.mark.parametrize("case", ["nan", "singular", "far"])
+def test_polish_kernel_returns_a_start_without_consensus(dev, case):
+    from test_torch_polish import _bad_start
+
+    from sks_tpu_torch.robust import polish as P
+
+    _, src, tar, mask = _polish_problem(dev, "o50_384")
+    h0 = _bad_start(case).to(dev)
+    out = P.anneal_polish(h0, src, tar, 3.0, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(out, h0) or (case == "nan" and out.isnan().all())
+
+
+def test_a_fused_fit_launches_the_polish_kernel_once(dev):
+    """``find_homography``'s fused route: K2, the IRLS refit and the polish,
+    one launch each; under a profiler the polish counts
+    ``ransac.polish_kernel`` once a fit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import sks_tpu_torch
+    from sks_tpu_torch.utils import profiling
+
+    src, tar, h_true, _ = _contaminated(dev, 11, 2000, 0.5)
+    sks_tpu_torch.find_homography(src, tar, max_iters=2048)
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        h, _ = sks_tpu_torch.find_homography(src, tar, max_iters=2048)
+        torch.cuda.synchronize()
+    made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES
+            if K.LAUNCHES[k] != before[k]}
+    assert made == {"aca_solve_score": 1, "irls_refine": 1,
+                    "anneal_polish": 1}
+    assert profiling.counters().get("ransac.polish_kernel") == 1
+    assert _corner_err(h, h_true) < 1.0
+
+
+def test_polish_routes_by_what_it_observes(dev):
+    """float64 points, a gradient to record and a torch.func transform keep
+    the eager polish (no launch); the wrapper itself raises on float64."""
+    from test_torch_polish import ITERS, LEVELS
+
+    from sks_tpu_torch.kernels.polish_cuda import anneal_polish
+    from sks_tpu_torch.robust import polish as P
+
+    h, src, tar, _ = _polish_problem(dev, "o50_384")
+    before = K.LAUNCHES["anneal_polish"]
+    P.anneal_polish(h.double(), src.double(), tar.double(), 3.0)
+    P.anneal_polish(h.clone().requires_grad_(), src, tar, 3.0)
+    torch.func.vmap(lambda s: P.anneal_polish(h, s, tar, 3.0))(src[None])
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["anneal_polish"] == before
+    with pytest.raises(TypeError):
+        anneal_polish(h.double(), src.double(), tar.double(), 3.0, None,
+                      LEVELS, ITERS)
+    assert K.LAUNCHES["anneal_polish"] == before
+
+
+def test_find_homography_on_o50_requests_stays_inside_the_benchmark_limits(
+        dev):
+    """``find_homography`` (the fused route, the polish in its kernel) on 4
+    requests of the benchmark's ``fit-n2000.o50`` traffic against the
+    benchmark's plain reference (float64, 16,384 draws): the corners and the
+    mask within the cell's own limits."""
+    import json
+    from pathlib import Path
+
+    import sks_tpu_torch
+    from benchmark.core import gen_fit, ref_fit
+
+    root = Path(__file__).resolve().parent.parent / "benchmark"
+    config = json.loads((root / "configs" / "fit-n2000.json").read_text())
+    traffic = json.loads((root / "traffic" / "o50.json").read_text())
+    gen = torch.Generator(device=dev).manual_seed(2_718_281_828)
+    src, tar, _, _ = gen_fit.fit_requests(gen, 4, config,
+                                          traffic["outlier_share"])
+    limits = traffic["limits"]
+    w, hgt = (float(v) for v in config["image_wh"])
+    for i in range(4):
+        h, mask = sks_tpu_torch.find_homography(
+            src[i], tar[i], ransac_reproj_threshold=config["threshold_px"],
+            max_iters=config["max_iters"], refine_iters=config["refine_iters"])
+        h_ref, mask_ref = ref_fit.fit(
+            src[i], tar[i], float(config["threshold_px"]),
+            int(traffic["ref_hypotheses"]),
+            torch.Generator(device=dev).manual_seed(i))
+        assert ref_fit.corner_gap(h, h_ref, w, hgt) <= limits["corner_gap_px"]
+        assert int((mask.cpu() != mask_ref.cpu()).sum()) <= limits[
+            "mask_flips"]

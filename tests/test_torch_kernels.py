@@ -42,6 +42,7 @@ from sks_tpu_torch.kernels import sks_cuda as ts
 from sks_tpu_torch.kernels import _build
 from sks_tpu_torch.kernels.fp64_cuda import fp64_solve_soa
 from sks_tpu_torch.kernels.irls_cuda import irls_refine
+from sks_tpu_torch.kernels.polish_cuda import anneal_polish
 from sks_tpu_torch.ops import aca_h
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 
@@ -423,12 +424,14 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
         fp64_solve_soa(s_soa, t_soa, kind)
     irls_refine(torch.eye(3)[None], torch.zeros((6, 2)), torch.zeros((6, 2)),
                 2, 3.0)
+    anneal_polish(torch.eye(3), torch.zeros((6, 2)), torch.zeros((6, 2)),
+                  3.0, None, (1.0,), 1)
     assert tk.LAUNCHES == before
     assert set(tk.LAUNCHES) == {"aca_solve", "aca_solve_score", "sks_solve",
                                 "ge_solve", "gpt_solve", "ho_solve",
                                 "ndlt_solve", "fp64_aca", "fp64_sks",
                                 "fp64_ge", "fp64_gpt", "fp64_ho",
-                                "fp64_ndlt", "irls_refine"}
+                                "fp64_ndlt", "irls_refine", "anneal_polish"}
 
 
 def test_build_flags_keep_ieee_scoring():
@@ -437,7 +440,7 @@ def test_build_flags_keep_ieee_scoring():
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     sources = _build._sources()
     assert [p.name for p in sources] == ["aca.cu", "baselines.cu", "fp64.cu",
-                                         "irls.cu", "sks.cu"]
+                                         "irls.cu", "polish.cu", "sks.cu"]
     # The timing instruments are a library of their own, built on demand.
     assert [p.name for p in _build._sources("ablation")] == [
         "angle_check.cu", "caps.cu", "f64.cu", "full.cu", "ho_f64.cu",
