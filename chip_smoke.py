@@ -56,12 +56,10 @@ their true H, a VO sequence's ATE, loop closures, one fit against the CPU;
 K2 once a fit) and ``sks_tpu_torch/bench/wall_real.py`` on the synthetic
 wall fixture (the reference's real matches are not in the repository).
 
-It also times the ablation instances of the NDLT and HO kernels
-(``sks_tpu_torch/bench/ndlt_ablation.py``, ``ho_ablation.py``), holds the
-Jacobi rotation's hand-written square root and reciprocal against the IEEE
-ones on every float32 of their range, counts the HO kernels' instructions,
-and times, as yardsticks that the port never calls, the PyTorch calls that do
-the dominant step of NDLT, HO and GPT.
+It also holds the Jacobi rotation's hand-written square root and reciprocal
+against the IEEE ones on every float32 of their range, and its division of
+tiny numerators on 2^28 pairs, and times, as yardsticks that the port never
+calls, the PyTorch calls that do the dominant step of NDLT, HO and GPT.
 
 Output: one JSON line per phase; then the card's name and power limit as
 ``nvidia-smi`` prints them; then a JSON line with every kernel's route, source,
@@ -85,7 +83,6 @@ import os
 import statistics
 import subprocess
 import sys
-import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -784,10 +781,7 @@ def main() -> int:
     from sks_tpu_torch.bench import (
         fp64_table,
         fused_adaptive,
-        ho_ablation,
-        ndlt_ablation,
         roofline,
-        sass,
         table8,
     )
     from sks_tpu_torch.geom.homography import apply_homography, normalize_h
@@ -820,25 +814,10 @@ def main() -> int:
          precision=torch.get_float32_matmul_precision())
 
     # ---- 2. build ----------------------------------------------------------
-    # The NDLT and HO timing instruments are a library of their own that no kernel
-    # of a path waits for: it compiles beside the checks and is joined at the
-    # ablation phase.
-    def build_ablation():
-        t0 = time.perf_counter()
-        try:
-            _build.load_ablation_library()
-        except Exception as exc:  # re-raised where the thread is joined
-            ablation_build["error"] = exc
-        ablation_build["seconds"] = round(time.perf_counter() - t0, 3)
-
-    ablation_build = {}
-    ablation_thread = threading.Thread(target=build_ablation)
     t0 = time.perf_counter()
-    ablation_thread.start()
     _build.load_library()
     emit("build", seconds=round(time.perf_counter() - t0, 3), nvcc=_build.find_nvcc(),
-         flags=list(_build.NVCC_FLAGS),
-         ptxas=ptxas_entries(_build.BUILD_LOGS.get("kernels", "")))
+         flags=list(_build.NVCC_FLAGS), ptxas=ptxas_entries(_build.BUILD_LOG))
 
     # kernel -> (source in the repo, the TPU kernel it replaces).
     kernel_sources = {
@@ -1964,62 +1943,17 @@ def main() -> int:
         check(row["corner_err_px_max"] < 1.0, f"adaptive fit: {row}")
     emit("fused_adaptive", grid_steps_from_shipped=steps, **fa)
 
-    # ---- 6b. what sets the NDLT kernels' time: the ablation instances ------
-    # (csrc/ablation/*.cu; 3-sweep, 3-solve forms must equal the plain
-    # version, the others compute other functions and are only timed).
-    ablation_thread.join()
-    if "error" in ablation_build:
-        raise ablation_build["error"]
-    ablation = ndlt_ablation.run_ablation(batch=b1, runs=5, reps=5)
-    for row in ablation:
-        check(row["equals_plain"] == row["computes_ndlt"],
-              f"ndlt ablation: {row}")
-    emit("ndlt_ablation", card=smi, rows=ablation,
-         build_seconds=ablation_build["seconds"],
-         ptxas=[e for log in _build.BUILD_LOGS.values()
-                for e in ptxas_entries(log) if "Ndlt" in e["entry"]])
-
-    # ---- 6b'. the HO kernels: the rotation's hand-written square root and
-    # reciprocal against the IEEE ones (every float32 of [1, 2], NaN), its
-    # division through float64 against the IEEE one (2^28 pairs), the whole
-    # rotation on special values; then the ablation instances
-    # (csrc/ablation/ho_*.cu).  Forms that compute HO must equal the plain
-    # version.  Each shipped kernel must beat the form it had before its
-    # redesign at B = 2^20 by more than the samples spread (its upper
-    # quartile under the old form's lower quartile), and at B = 10,000 and 1
-    # its median must not be above the old form's by more than 5%.
-    angles = ho_ablation.angle_check()
+    # ---- 6b. the Jacobi rotation's short forms (csrc/angle_check.cu): its
+    # hand-written square root and reciprocal against the IEEE ones (every
+    # float32 of [1, 2], NaN), DivTiny against the IEEE division (2^28
+    # pairs), the whole rotation on special values.
+    angles = KB.angle_check()
     check(angles["sqrt_mismatches"] == 0 and angles["rcp_mismatches"] == 0
           and angles["division_mismatches"] == 0
           and angles["angle_mismatches"] == 0
           and angles["subnormal_quotients"] >= 1 << 20,
           f"the rotation's short forms are not exact: {angles}")
     emit("angle_check", **angles)
-    ho_rows = ho_ablation.run_ablation(batch=b1, runs=5, reps=5)
-    by_tag = {(r["tag"], r["batch"]): r for r in ho_rows}
-    for row in ho_rows:
-        # A form that runs fewer sweeps may equal HO all the same: the 3 x 3
-        # Jacobi has converged after 5 of its 10 sweeps on these quads.
-        check(row["equals_plain"] or not row["computes_ho"],
-              f"ho ablation: {row}")
-    for new, old in (("shipped", "before"), ("f64_shipped", "f64_before")):
-        check(by_tag[new, b1]["ms_q3"] < by_tag[old, b1]["ms_q1"],
-              f"{new} is not faster than {old} at B = {b1}: "
-              f"{by_tag[new, b1]} vs {by_tag[old, b1]}")
-        for b in (10_000, 1):
-            check(by_tag[new, b]["ms"] <= 1.05 * by_tag[old, b]["ms"],
-                  f"{new} is slower than {old} at B = {b}: "
-                  f"{by_tag[new, b]} vs {by_tag[old, b]}")
-    emit("ho_ablation", card=smi, rows=ho_rows,
-         ptxas=[e for log in _build.BUILD_LOGS.values()
-                for e in ptxas_entries(log) if "HoCore" in e["entry"]])
-    # The HO kernels' instructions (cuobjdump -sass): a thread's straight
-    # path with the sweep loop run as often as the kernel runs it, the MUFU
-    # that starts each IEEE sequence, branches, and the least time 2^20
-    # threads of that many instructions take on the card's 528 schedulers.
-    emit("ho_sass", card=smi, clocks_hz=list(sass.H100_CLOCKS_HZ),
-         rows=[{k: v for k, v in row.items() if k != "top"}
-               for row in ho_ablation.sass_report()])
 
     # ---- 6c. yardsticks: the library calls that do the dominant step of
     # NDLT (9x9 eigh), HO (3x3 eigh) and GPT (8x8 solve), float32.  The port

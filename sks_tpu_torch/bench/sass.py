@@ -9,18 +9,17 @@ kernel's own code can take, whatever its flop count says.
 
 Run on a machine with the CUDA toolkit and a card, from the repository root:
 
-    python -m sks_tpu_torch.bench.sass [--ablation] [SUBSTRING ...]
+    python -m sks_tpu_torch.bench.sass [--trips N] [SUBSTRING ...]
 
 prints one JSON line per kernel whose mangled name contains every SUBSTRING
-(all kernels without one) of the package's kernel library, or with
-``--ablation`` of the timing instruments: its instruction count, its 12
-commonest opcodes, its loops (each backward branch: the loop's first address
-and its length in instructions), its ``MUFU`` instructions by function (one
-starts every IEEE division, reciprocal and square root), and the count up to
-the last ``EXIT`` (what follows is the out-of-line slow paths of those
-sequences).  ``--trips N`` adds the instructions a thread executes when every
-loop runs N times, and the time 2^20 such threads need at the card's instruction
-rate (:func:`instruction_limit_ms`).
+(all kernels without one) of the package's kernel library: its instruction
+count, its 12 commonest opcodes, its loops (each backward branch: the loop's
+first address and its length in instructions), its ``MUFU`` instructions by
+function (one starts every IEEE division, reciprocal and square root), and the
+count up to the last ``EXIT`` (what follows is the out-of-line slow paths of
+those sequences).  ``--trips N`` adds the instructions a thread executes when
+every loop runs N times, and the time 2^20 such threads need at the card's
+instruction rate (:func:`instruction_limit_ms`).
 """
 
 from __future__ import annotations
@@ -106,24 +105,24 @@ def _listings(library: Path) -> dict[str, str]:
     return out
 
 
-def kernel_summary(library: Path, wanted=(), trips=1,
+def kernel_summary(wanted=(), trips: int = 1,
                    threads: int = 1 << 20) -> list[dict]:
-    """One dict per kernel of ``library`` whose mangled name contains every
-    string of ``wanted``: what :func:`main` prints.  ``trips`` is how often
-    every loop runs, a number or a function of the kernel's name."""
+    """One dict per kernel of the package's library (built if it is not yet)
+    whose mangled name contains every string of ``wanted``: what
+    :func:`main` prints.  ``trips`` is how often every loop runs."""
+    _build.load_library()
     rows = []
-    for name, body in _listings(library).items():
+    for name, body in _listings(_build.library_path()).items():
         if not all(w in name for w in wanted):
             continue
         ops, loops = parse_kernel(body)
-        n = trips(name) if callable(trips) else trips
-        executed = executed_instructions(body, n)
+        executed = executed_instructions(body, trips)
         rows.append({
             "kernel": name, "instructions": sum(ops.values()),
             "top": ops.most_common(12), "loops": loops,
             "mufu": dict(mufu_kinds(body)),
             "branches": ops["BRA"], "calls": ops["CALL"],
-            "straight_path": executed_instructions(body), "trips": n,
+            "straight_path": executed_instructions(body), "trips": trips,
             "executed": executed,
             "instruction_limit_ms": [instruction_limit_ms(executed, threads, hz)
                                for hz in H100_CLOCKS_HZ],
@@ -135,18 +134,11 @@ def main(argv=None) -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ablation", action="store_true",
-                    help="the timing instruments' library")
     ap.add_argument("--trips", type=int, default=1,
                     help="times every loop runs in the executed count")
     ap.add_argument("wanted", nargs="*", metavar="SUBSTRING")
     args = ap.parse_args(argv)
-    if args.ablation:
-        _build.load_ablation_library()
-    else:
-        _build.load_library()
-    library = _build.library_path("ablation" if args.ablation else "kernels")
-    for row in kernel_summary(library, args.wanted, args.trips):
+    for row in kernel_summary(args.wanted, args.trips):
         print(json.dumps(row))
 
 

@@ -24,14 +24,15 @@
 //   128 threads per block, 77 registers.
 // - HO by instruction rate in its 30 Jacobi rotations, and, as it first
 //   stood, by the slow path of the IEEE division.  Measured on an NVIDIA H100
-//   80GB HBM3 at 700 W (the ablation of bench/ho_ablation.py, PERF.md): the
-//   3 x 3 Jacobi converges in 3-4 of its 10 sweeps; from then on the
-//   off-diagonal entry that a rotation divides is zero in 70-92% of the
+//   80GB HBM3 at 700 W (forms that differ in one thing each; PERF.md
+//   section 6): the 3 x 3 Jacobi converges in 3-4 of its 10 sweeps; from then
+//   on the off-diagonal entry that a rotation divides is zero in 70-92% of the
 //   lanes and subnormal in the rest, the compiler's division fails its range
-//   check in every warp, and ~120 instruction slots go where ~10 would do.  A form
-//   with approximate reciprocals (not HO) ran at 98% of its instruction-rate limit; the
-//   exact one at 58%.  Code size was not it: 10 unrolled sweeps (4,622
-//   instructions a thread, 77 KB) ran 0.282 ms, a loop of 377 0.265.
+//   check in every warp, and ~120 instruction slots go where ~10 would do.  A
+//   form with approximate reciprocals (not HO) ran at 98% of its
+//   instruction-rate limit; the exact one at 58%.  Code size was not it: 10
+//   unrolled sweeps (4,622 instructions a thread, 77 KB) ran 0.282 ms, a loop
+//   of 377 0.265.
 //   So the rotation (baselines.cuh::Rotation) keeps every rounding and drops
 //   instructions: |tau| and a sign flip as operand modifiers; the second
 //   sqrt and the reciprocal, whose argument lies in [1, 2], without range
@@ -43,9 +44,9 @@
 //   block change nothing (0.196 / 0.207).  The NDLT seeds stop after 3
 //   sweeps, long before they converge, and keep the plain IEEE division.
 // - NDLT by instruction rate in its 9x9 Jacobi seed, and by the warps an SM
-//   can hold to hide that seed's latency.  Measured (PERF.md, the ablation
-//   of bench/ndlt_ablation.py): the 3 seed sweeps are ~95% of the time, the
-//   3 LDL^T solves ~3%; each of the 108 rotations starts with a dependent
+//   can hold to hide that seed's latency.  Measured (forms that differ in one
+//   thing each; PERF.md section 6): the 3 seed sweeps are ~95% of the time,
+//   the 3 LDL^T solves ~3%; each of the 108 rotations starts with a dependent
 //   sqrt -> division -> sqrt -> division.  With the rotated matrix (81
 //   values), the eigenvector matrix v (81) and the normal matrix (24
 //   distinct sums) all in registers the kernel needed 225 registers: 4
@@ -74,17 +75,13 @@ namespace {
 constexpr int kGeThreads = 256;
 constexpr int kGptThreads = 128;
 constexpr int kHoThreads = 128;
-constexpr int kNdltThreads = 64;
-
-template <int N>
-using NdltV = VShared<N, kNdltThreads>;
 
 using HoF32 = HoCore<float, JacobiF32>;
-using NdltF32 = NdltCore<float, InvitF32<NdltV>>;
+using NdltF32 = NdltCore<float, InvitF32>;
 
 }  // namespace
 
 SKS_EXPORT_SOLVE(ge_solve, GeCore<float>, kGeThreads)
 SKS_EXPORT_SOLVE(gpt_solve, GptCore<float>, kGptThreads)
 SKS_EXPORT_SOLVE(ho_solve, HoF32, kHoThreads)
-SKS_EXPORT_SOLVE(ndlt_solve, NdltF32, kNdltThreads)
+SKS_EXPORT_SOLVE(ndlt_solve, NdltF32, kNdltF32Threads)

@@ -32,7 +32,7 @@
 //   among them, each a sequence of a dozen dependent DFMAs; the compiler
 //   shares no reciprocal between quotients of one divisor: 25 MUFU.RCP64H)
 //   and a 4-sweep float32 Jacobi seed of 852, at 166 registers: 12 warps an
-//   SM.  Measured (bench/ho_ablation.py): the seed alone 0.189 ms, the
+//   SM.  Measured (PERF.md section 6): the seed alone 0.189 ms, the
 //   float64 solves alone 0.111, both 0.203: they overlap, on different
 //   pipes.  What paid: __launch_bounds__(128, 4), 128 registers with 40-48 B
 //   of spills, 16 warps an SM (0.192 -> 0.166 ms; 96 registers and 250 B of
@@ -69,8 +69,8 @@ constexpr int kNdltThreads = 64;
 constexpr int kNdltMinBlocks = 6;  // 168 registers a thread
 constexpr int kHoMinBlocks = 4;    // 128 registers a thread
 
-using HoF64 = HoCore<double, Invit64<4, VRegs, true, DivTiny>>;
-using NdltF64 = NdltCore<double, Invit64<3, VRegs, true>>;
+using HoF64 = HoCore<double, Invit64<4, DivTiny>>;
+using NdltF64 = NdltCore<double, Invit64<3>>;
 
 }  // namespace
 

@@ -8,16 +8,12 @@ of every file under ``csrc/`` (headers included) and of the flags, so an
 edited source or header rebuilds and an unchanged tree loads at once.
 Nothing here runs at import: the CPU tests import every module on machines
 without ``nvcc`` or a card.
-
-The NDLT and HO timing instruments (``csrc/ablation/*.cu``) are a second
-library, built the same way and only when ``bench/ndlt_ablation.py`` or
-``bench/ho_ablation.py`` asks for it (:func:`load_ablation_library`): no
-kernel of a path waits for them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,10 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_LOGS", "FP64_KINDS", "HO_ABLATIONS", "NDLT_ABLATIONS",
-           "NVCC_FLAGS",
-           "SOLVE_KERNELS", "find_nvcc", "library_path",
-           "load_ablation_library", "load_library"]
+__all__ = ["BUILD_LOG", "FP64_KINDS", "NVCC_FLAGS", "SOLVE_KERNELS",
+           "find_nvcc", "library_path", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -44,13 +38,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: The libraries: name -> (directory of its ``*.cu`` under ``csrc/``).
-_LIBRARY_DIRS = {"kernels": _CSRC, "ablation": _CSRC / "ablation"}
-_LIBS: dict[str, ctypes.CDLL] = {}
-#: ``nvcc``'s output of each library's build in this process (``-Xptxas -v``
-#: lists each kernel's registers, shared memory and spills), by library name;
-#: no entry for a library that was already built.
-BUILD_LOGS: dict[str, str] = {}
+#: ``nvcc``'s output of the library's build in this process (``-Xptxas -v``
+#: lists each kernel's registers, shared memory and spills); empty if the
+#: library was already built.
+BUILD_LOG = ""
 
 
 def find_nvcc() -> str:
@@ -82,39 +73,9 @@ SOLVE_KERNELS = ("aca_solve", "sks_solve", "ge_solve", "gpt_solve",
 FP64_KINDS = ("aca", "sks", "ge", "gpt", "ho", "ndlt")
 
 
-#: Timing instruments for K4-NDLT (``csrc/ablation/*.cu``, the library
-#: 'ablation', driven by ``bench/ndlt_ablation.py``): ``sks_ndlt_abl_<tag>(src,
-#: tar, out, B, stream)`` on float32 storage, the ``f64_`` ones on float64
-#: (instances of K5-ndlt).  No path launches them.
-NDLT_ABLATIONS = (
-    "regs_s0_l0", "regs_s0_l3", "regs_s1_l3", "regs_s2_l3", "regs_s3_l3",
-    "regs_s3_l0", "regs_s3_l3_mb6", "regs_s3_l3_mb8",
-    "regs_roll", "regs_roll_reload_mb6", "f64_regs", "f64_smem_reload",
-    "ieee", "f64_ieee",
-)
-
-#: Timing instruments for K4-HO and K5-ho (``csrc/ablation/ho_*.cu``, the
-#: same library, driven by ``bench/ho_ablation.py``): ``sks_ho_abl_<tag>(src,
-#: tar, out, B, stream)`` on float32 storage, the ``f64_`` ones on float64
-#: (instances of K5-ho).  ``csrc/ablation/ablation.cuh`` says what each is.
-#: ``sks_ho_abl_angle_check`` (``angle_check.cu``) is no solve: it holds the
-#: rotation's hand-written square root, reciprocal and division against the
-#: IEEE ones.
-HO_ABLATIONS = (
-    "before", "unroll_s0", "unroll_s2", "unroll_s5", "noeig",
-    "roll_s2", "roll_s5", "roll_s10", "roll_abs", "roll_unit", "roll_div64",
-    "roll_tiny64", "tiny_t64", "tiny_t256", "roll_approx",
-    "f64_before", "f64_seed_only", "f64_refine_only", "f64_roll", "f64_unit",
-    "f64_unit_mb4", "f64_unit_mb5", "f64_tiny64_mb4", "f64_tiny",
-    "f64_tiny_mb3", "f64_tiny_mb4", "f64_tiny_mb5", "f64_tiny_t64_mb7",
-    "f64_tiny_t64_mb8", "f64_tiny_t64_mb9",
-)
-
-
-def _sources(library: str = "kernels") -> list[Path]:
-    """The translation units of ``library``: every ``*.cu`` of its directory
-    (not of the directories below it)."""
-    return sorted(_LIBRARY_DIRS[library].glob("*.cu"))
+def _sources() -> list[Path]:
+    """The translation units: every ``*.cu`` of ``csrc/``."""
+    return sorted(_CSRC.glob("*.cu"))
 
 
 def _digest(root: Path = _CSRC) -> str:
@@ -126,31 +87,17 @@ def _digest(root: Path = _CSRC) -> str:
     return h.hexdigest()[:16]
 
 
-def _declare_solves(lib: ctypes.CDLL, names) -> None:
-    """``name(src, tar, out, B, stream) -> cudaError_t`` for every name."""
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-
-
-def _declare_ablation(lib: ctypes.CDLL) -> None:
-    _declare_solves(lib, [f"sks_ndlt_abl_{tag}" for tag in NDLT_ABLATIONS]
-                    + [f"sks_ho_abl_{tag}" for tag in HO_ABLATIONS])
-    # values, n, counts, stream
-    lib.sks_ho_abl_angle_check.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    lib.sks_ho_abl_angle_check.restype = ctypes.c_int
-
-
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ll = ctypes.c_void_p, ctypes.c_longlong
     solves = [f"sks_{kernel}_{dtype}" for kernel in SOLVE_KERNELS
               for dtype in ("f32", "bf16")]
     solves += [f"sks_fp64_{kind}_{dtype}" for kind in FP64_KINDS
                for dtype in ("f32", "f64")]
-    _declare_solves(lib, solves)
+    for name in solves:
+        # src, tar, out, B, stream
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, ll, vp]
+        fn.restype = ctypes.c_int
     for name in ("sks_aca_solve_score_f32", "sks_aca_solve_score_bf16"):
         fn = getattr(lib, name)
         # src, tar, pts, weights, t2, scoring, out, scratch, pairs, B, N,
@@ -170,6 +117,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ctypes.c_float,
                    ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
                    vp]
+    fn.restype = ctypes.c_int
+    # values, n, counts, stream
+    fn = lib.sks_angle_check
+    fn.argtypes = [vp, ctypes.c_int, vp, vp]
     fn.restype = ctypes.c_int
 
 
@@ -200,33 +151,22 @@ def _build(nvcc: str, sources: list[Path], tmp: Path, out: Path) -> str:
     return "".join(f"== {src.name}\n{log}" for src, log in zip(sources, logs))
 
 
-def library_path(library: str = "kernels") -> Path:
-    """Where ``library`` ('kernels' or 'ablation') is built to."""
-    return _BUILD_DIR / f"libsks_tpu_torch_{library}_{_digest()}.so"
+def library_path() -> Path:
+    """Where the library is built to."""
+    return _BUILD_DIR / f"libsks_tpu_torch_kernels_{_digest()}.so"
 
 
-def _load(library: str, declare) -> ctypes.CDLL:
-    if library in _LIBS:
-        return _LIBS[library]
-    out = library_path(library)
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' shared library; cached."""
+    global BUILD_LOG
+    out = library_path()
     if not out.is_file():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # Build in a temporary directory and rename the library into place:
         # concurrent processes never load a half-written one.
         with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-            BUILD_LOGS[library] = _build(find_nvcc(), _sources(library),
-                                         Path(tmp), out)
+            BUILD_LOG = _build(find_nvcc(), _sources(), Path(tmp), out)
     lib = ctypes.CDLL(str(out))
-    declare(lib)
-    _LIBS[library] = lib
+    _declare(lib)
     return lib
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library; cached."""
-    return _load("kernels", _declare)
-
-
-def load_ablation_library() -> ctypes.CDLL:
-    """Build (if needed) and load the NDLT and HO timing instruments; cached."""
-    return _load("ablation", _declare_ablation)

@@ -16,6 +16,7 @@ from torch import Tensor
 
 from sks_tpu_torch.kernels import polish_cuda
 from sks_tpu_torch.ops.ndlt import _hartley, _t_inv_matrix, _t_matrix
+from sks_tpu_torch.utils import graphs
 from sks_tpu_torch.utils.profiling import count
 
 __all__ = ["gn_refine_h", "anneal_polish"]
@@ -128,16 +129,14 @@ def anneal_polish(
     A level whose consensus falls under 8 points or under 25% of the first
     level's mass is skipped (branch-free).
 
-    Float32 CUDA inputs with no gradient to record and no torch.func
-    transform active run in one launch of the kernel
+    Float32 inputs that may leave eager PyTorch
+    (``utils.graphs.may_leave_eager``: on the card, no gradient to record,
+    no torch.func transform) run in one launch of the kernel
     ``kernels.polish_cuda.anneal_polish`` (counted by
     ``ransac.polish_kernel``); everything else runs
     :func:`_anneal_polish_eager`.
     """
-    grad = torch.is_grad_enabled() and (
-        h.requires_grad or src.requires_grad or tar.requires_grad)
-    if (src.is_cuda and not grad
-            and not torch._C._are_functorch_transforms_active()
+    if (graphs.may_leave_eager(src, tar, h)
             and h.dtype == src.dtype == tar.dtype == torch.float32):
         count("ransac.polish_kernel")
         return polish_cuda.anneal_polish(h, src, tar, threshold, point_mask,

@@ -427,15 +427,15 @@ def _irls_refine(h0: Tensor, src: Tensor, tar: Tensor, iters: int,
     never receive weight; a refit from fewer than 4 points of weight mass, or
     a non-finite one, keeps the previous model.
 
-    Float32 CUDA inputs without float64 scoring or a gradient to record run
-    in one launch of the kernel ``kernels.irls_cuda.irls_refine`` (counted
-    by ``ransac.irls_kernel``); everything else runs
-    :func:`_irls_refine_eager`, the kernel's plain version.
+    Float32 inputs without float64 scoring that may leave eager PyTorch
+    (``utils.graphs.may_leave_eager``: on the card, no gradient to record,
+    no torch.func transform) run in one launch of the kernel
+    ``kernels.irls_cuda.irls_refine`` (counted by ``ransac.irls_kernel``);
+    everything else runs :func:`_irls_refine_eager`, the kernel's plain
+    version.
     """
     sm = sigma_max if sigma_max is not None else 3.0 * threshold
-    grad = torch.is_grad_enabled() and (
-        h0.requires_grad or src.requires_grad or tar.requires_grad)
-    if (src.is_cuda and not df64 and not grad
+    if (not df64 and graphs.may_leave_eager(src, tar, h0)
             and h0.dtype == src.dtype == tar.dtype == torch.float32):
         count("ransac.irls_kernel")
         magsac = scoring == "magsac"

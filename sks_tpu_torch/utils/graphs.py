@@ -6,6 +6,10 @@ batch) is hundreds or thousands of small launches, each ~10-60 µs of host
 for ~1-3 µs of device.  :func:`replay` captures such a stretch as a CUDA
 graph at the first call of its key and shapes and replays it after: one
 launch, the same kernels in the same order on the same inputs.
+
+:func:`may_leave_eager` is the one rule for leaving eager PyTorch, by a
+replay or by a kernel launched through ``ctypes``: neither autograd nor a
+``torch.func`` transform sees such a stretch.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Callable
 import torch
 from torch import Tensor
 
-__all__ = ["graphable", "replay"]
+__all__ = ["graphable", "may_leave_eager", "replay"]
 
 #: Captured graphs: key -> (graph, static inputs, static outputs).  The
 #: oldest goes past ``MAX_GRAPHS``.
@@ -23,15 +27,21 @@ _GRAPHS: dict = {}
 MAX_GRAPHS = 16
 
 
-def graphable(*tensors: Tensor) -> bool:
-    """Whether a stretch on ``tensors`` may be replayed: on the card, with
-    no autograd or torch.func transform to follow it, and not itself inside
-    a capture."""
+def may_leave_eager(*tensors: Tensor) -> bool:
+    """Whether a stretch on ``tensors`` may leave eager PyTorch: the first
+    tensor on the card, no autograd graph to record (grad enabled and a
+    tensor requiring grad), and no torch.func transform active."""
     return (tensors[0].is_cuda
-            and not torch.cuda.is_current_stream_capturing()
             and not torch._C._are_functorch_transforms_active()
             and not (torch.is_grad_enabled()
                      and any(t.requires_grad for t in tensors)))
+
+
+def graphable(*tensors: Tensor) -> bool:
+    """Whether a stretch on ``tensors`` may be replayed: it may leave eager
+    PyTorch (:func:`may_leave_eager`) and is not itself inside a capture."""
+    return (may_leave_eager(*tensors)
+            and not torch.cuda.is_current_stream_capturing())
 
 
 def replay(key, fn: Callable[..., tuple], *tensors: Tensor) -> tuple:

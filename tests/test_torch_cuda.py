@@ -22,6 +22,7 @@ fraction at most 1.05 of the card's spec.
 """
 
 import copy
+from functools import partial
 
 import pytest
 import torch
@@ -247,13 +248,13 @@ def test_jacobi_kernels_equal_plain_on_adversarial_quads(dev, solver, dtype):
 
 def test_rotation_square_root_and_reciprocal_are_correctly_rounded(dev):
     """``csrc/baselines.cuh``: ``sqrt_1to2`` and ``rcp_1to2`` equal ``sqrtf``
-    and ``1.0f / x`` on every float32 of [1, 2] and on NaN; the division of
-    a tiny numerator through float64 equals ``num / den`` on 2^28 pairs, a
-    good part of them with a subnormal quotient; and the shipped rotations
+    and ``1.0f / x`` on every float32 of [1, 2] and on NaN; ``DivTiny``
+    equals ``num / den`` on 2^28 pairs, a good part of them with a subnormal
+    quotient; and the shipped rotations
     equal the rotation as the plain version writes it on every triple of the
     special values (zeros, subnormals, values whose squares underflow or
     overflow, infinities, NaN)."""
-    from sks_tpu_torch.bench.ho_ablation import angle_check
+    from sks_tpu_torch.kernels.baselines_cuda import angle_check
 
     res = angle_check()
     assert res["unit_range_arguments"] == 2 ** 23 + 2
@@ -1092,24 +1093,6 @@ def test_irls_kernel_keeps_nan_and_starved_candidates_and_counts_once(dev):
     assert torch.equal(out[[0, 2, 3]], out2[[0, 2, 3]])
 
 
-def test_irls_routes_by_what_it_observes(dev):
-    """float64 points, float64 scoring and a gradient to record keep the
-    eager refit (no launch); the wrapper itself raises on float64."""
-    from sks_tpu_torch.kernels.irls_cuda import irls_refine
-    from sks_tpu_torch.robust import ransac as R
-
-    h_top, src, tar, _ = _irls_problem(dev, 384)
-    before = K.LAUNCHES["irls_refine"]
-    R._irls_refine(h_top.double(), src.double(), tar.double(), 2, 3.0)
-    R._irls_refine(h_top, src, tar, 2, 3.0, df64=True)
-    R._irls_refine(h_top.clone().requires_grad_(), src, tar, 2, 3.0)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["irls_refine"] == before
-    with pytest.raises(TypeError):
-        irls_refine(h_top.double(), src.double(), tar.double(), 2, 3.0)
-    assert K.LAUNCHES["irls_refine"] == before
-
-
 # ---- the annealed LM polish of the selected model (csrc/polish.cu) --------
 
 POLISH_FIXTURES = ["clean2000", "clean384", "o50_2000", "o50_384", "padded",
@@ -1196,25 +1179,52 @@ def test_a_fused_fit_launches_the_polish_kernel_once(dev):
     assert _corner_err(h, h_true) < 1.0
 
 
-def test_polish_routes_by_what_it_observes(dev):
-    """float64 points, a gradient to record and a torch.func transform keep
-    the eager polish (no launch); the wrapper itself raises on float64."""
+#: The tail kernels and what keeps each on its eager stretch.
+TAIL_ROUTES = [(kernel, case) for kernel in ("irls_refine", "anneal_polish")
+               for case in ("float64", "requires_grad", "vmap", "df64")
+               if kernel == "irls_refine" or case != "df64"]
+
+
+@pytest.mark.parametrize("kernel,case", TAIL_ROUTES)
+def test_tail_kernels_route_by_what_they_observe(dev, kernel, case):
+    """float64 points, a gradient to record, a torch.func transform and, for
+    the IRLS refit, float64 scoring keep the eager stretch (no launch); the
+    wrappers themselves raise on float64."""
     from test_torch_polish import ITERS, LEVELS
 
+    from sks_tpu_torch.kernels.irls_cuda import irls_refine
     from sks_tpu_torch.kernels.polish_cuda import anneal_polish
     from sks_tpu_torch.robust import polish as P
+    from sks_tpu_torch.robust import ransac as R
 
-    h, src, tar, _ = _polish_problem(dev, "o50_384")
-    before = K.LAUNCHES["anneal_polish"]
-    P.anneal_polish(h.double(), src.double(), tar.double(), 3.0)
-    P.anneal_polish(h.clone().requires_grad_(), src, tar, 3.0)
-    torch.func.vmap(lambda s: P.anneal_polish(h, s, tar, 3.0))(src[None])
+    irls = kernel == "irls_refine"
+    h, src, tar, _ = (_irls_problem(dev, 384) if irls
+                      else _polish_problem(dev, "o50_384"))
+    route = (partial(R._irls_refine, iters=2, threshold=3.0) if irls
+             else partial(P.anneal_polish, threshold=3.0))
+    wrapper = (partial(irls_refine, iters=2, threshold=3.0) if irls
+               else partial(anneal_polish, threshold=3.0, point_mask=None,
+                            levels=LEVELS, iters=ITERS))
+    before = K.LAUNCHES[kernel]
+    if case == "float64":
+        route(h.double(), src.double(), tar.double())
+    elif case == "requires_grad":
+        route(h.clone().requires_grad_(), src, tar)
+    elif case == "df64":
+        route(h, src, tar, df64=True)
+    elif irls:
+        # The eager refit's Jacobi (ops.linalg.jacobi_eigh) writes rotated
+        # columns into an eigenvector matrix that vmap does not batch, so it
+        # cannot map over the points; the transform is active all the same.
+        torch.func.vmap(lambda x: route(h, src, tar) * x)(
+            torch.ones(1, device=dev))
+    else:
+        torch.func.vmap(lambda s: route(h, s, tar))(src[None])
     torch.cuda.synchronize()
-    assert K.LAUNCHES["anneal_polish"] == before
+    assert K.LAUNCHES[kernel] == before
     with pytest.raises(TypeError):
-        anneal_polish(h.double(), src.double(), tar.double(), 3.0, None,
-                      LEVELS, ITERS)
-    assert K.LAUNCHES["anneal_polish"] == before
+        wrapper(h.double(), src.double(), tar.double())
+    assert K.LAUNCHES[kernel] == before
 
 
 def test_find_homography_on_o50_requests_stays_inside_the_benchmark_limits(

@@ -18,10 +18,12 @@ The HO kernels' equality with their plain versions is held on the card
   held to JAX there with ``torch.set_flush_denormal(True)``;
 * the algebra that lets the kernels' rotation drop two multiplications and
   two range checks (``csrc/baselines.cuh::Rotation``) is checked in
-  float32 on special values;
-* the pure-Python parts of the HO ablation (``bench/ho_ablation.py``), of the
-  instruction counter (``bench/sass.py``) and the operation counts that the
-  HO kernels' bounds rest on.
+  float32 on the special values of its card check
+  (``kernels/baselines_cuda.py::angle_check``), that check covers every
+  division policy a shipped kernel takes, and it refuses to run without a
+  card;
+* the pure-Python parts of the instruction counter (``bench/sass.py``) and
+  the operation counts that the HO kernels' bounds rest on.
 """
 
 import re
@@ -38,7 +40,7 @@ from torch_parity import adversarial_quads, fro, from_tiles, to_np, to_tiles
 from sks_tpu.kernels import baselines_pallas as jb
 from sks_tpu.ops.ho import ho_core as jax_ho_core
 
-from sks_tpu_torch.bench import ho_ablation, roofline, sass
+from sks_tpu_torch.bench import roofline, sass
 from sks_tpu_torch.kernels import FP64_SOLVE_KERNELS, SOLVE_KERNELS, _build
 from sks_tpu_torch.kernels import baselines_cuda as tb
 from sks_tpu_torch.kernels._soa import to_soa
@@ -128,7 +130,7 @@ def test_rotation_shortcuts_are_exact_on_special_values():
     the values its card check uses: ``sgn * tau + hyp`` is ``|tau| + hyp``,
     ``sgn * apq`` is a sign flip, and ``t * t + 1`` lies in [1, 2] or is NaN,
     so the second square root and the reciprocal never leave [1, 2]."""
-    v = T(ho_ablation.angle_check_values())
+    v = T(tb.angle_check_values())
     assert torch.isnan(v).any() and torch.isinf(v).any() and (v == 0).any()
     assert ((v != 0) & (v.abs() < torch.finfo(torch.float32).tiny)).any()
     app, aqq, apq = torch.meshgrid(v, v, v, indexing="ij")
@@ -151,53 +153,24 @@ def test_rotation_shortcuts_are_exact_on_special_values():
     assert bool((torch.isnan(den) | (den >= 2.0 ** -64)).all())
 
 
-def test_ho_ablation_tags_have_their_symbols():
-    """Every tag of ``_build.HO_ABLATIONS`` is exported once by a source of
-    ``csrc/ablation/``, float64 instances by the float64 macro, and the
-    sources export no HO instance that the registry lacks."""
-    text = "".join(p.read_text() for p in _build._sources("ablation"))
-    exported = re.findall(r"SKS_EXPORT_HO_ABLATION(64)?\((\w+),", text)
-    assert sorted(tag for _, tag in exported) == sorted(_build.HO_ABLATIONS)
-    assert len(set(_build.HO_ABLATIONS)) == len(_build.HO_ABLATIONS)
-    for wide, tag in exported:
-        assert bool(wide) == tag.startswith("f64_"), tag
-    assert not set(_build.HO_ABLATIONS) & set(_build.NDLT_ABLATIONS)
-    assert 'extern "C" int sks_ho_abl_angle_check(' in text
-    # The instruments are built on demand: no source of the kernel library
-    # includes them, and the production headers hold no instrument.
-    for path in _build._sources():
-        assert "ablation/" not in path.read_text()
-    for header in ("baselines.cuh", "soa.cuh"):
-        assert "Ablation" not in (_build._CSRC / header).read_text()
+def test_every_division_policy_is_held_by_the_card_check():
+    """Every division policy of the kernels' rotation (``Div*`` in ``csrc/``)
+    is one whose ``Rotation`` ``csrc/angle_check.cu`` holds against the IEEE
+    rotation: a new policy needs its card check."""
+    check = _build._CSRC / "angle_check.cu"
+    policies = set()
+    for path in _build._CSRC.iterdir():
+        if path != check:
+            policies |= set(re.findall(r"\bDiv[A-Z]\w*", path.read_text()))
+    assert policies == {"DivIeee", "DivTiny"}
+    for div in policies:
+        assert f"Rotation<{div}>::angle(" in check.read_text()
 
 
-def test_which_ho_ablation_tags_compute_ho():
-    computes = {t for t in _build.HO_ABLATIONS if ho_ablation.computes_ho(t)}
-    assert computes == {
-        "before", "roll_s10", "roll_abs", "roll_unit", "roll_div64",
-        "roll_tiny64", "tiny_t64", "tiny_t256", "f64_before", "f64_roll",
-        "f64_unit", "f64_unit_mb4", "f64_unit_mb5", "f64_tiny64_mb4",
-        "f64_tiny", "f64_tiny_mb3", "f64_tiny_mb4", "f64_tiny_mb5",
-        "f64_tiny_t64_mb7", "f64_tiny_t64_mb8", "f64_tiny_t64_mb9"}
-    # Fewer sweeps, no eigensolver, approximate arithmetic, half of K5-ho.
-    assert set(_build.HO_ABLATIONS) - computes == {
-        "unroll_s0", "unroll_s2", "unroll_s5", "noeig", "roll_s2", "roll_s5",
-        "roll_approx", "f64_seed_only", "f64_refine_only"}
-
-
-def test_ho_ablation_needs_a_card_and_known_tags():
-    s = torch.zeros((8, 4))
-    with pytest.raises(ValueError, match="unknown ablation"):
-        ho_ablation.ablation_solve("regs_roll", s, s)
-    with pytest.raises(ValueError, match="CUDA device only"):
-        ho_ablation.ablation_solve("before", s, s)
-    with pytest.raises(TypeError):
-        ho_ablation.ablation_solve("f64_before", s, s)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="needs a card"):
-            ho_ablation.run_ablation(batch=4)
-        with pytest.raises(RuntimeError, match="needs a card"):
-            ho_ablation.angle_check()
+def test_angle_check_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a card"):
+        tb.angle_check()
 
 
 def test_ho_operation_counts_behind_the_bounds():

@@ -439,16 +439,10 @@ def test_build_flags_keep_ieee_scoring():
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
     assert not any("fast_math" in f or "fast-math" in f for f in flags)
     sources = _build._sources()
-    assert [p.name for p in sources] == ["aca.cu", "baselines.cu", "fp64.cu",
+    assert [p.name for p in sources] == ["aca.cu", "angle_check.cu",
+                                         "baselines.cu", "fp64.cu",
                                          "irls.cu", "polish.cu", "sks.cu"]
-    # The timing instruments are a library of their own, built on demand.
-    assert [p.name for p in _build._sources("ablation")] == [
-        "angle_check.cu", "caps.cu", "f64.cu", "full.cu", "ho_f64.cu",
-        "ho_rolled.cu", "ho_sweeps.cu", "ieee.cu", "rolled.cu", "sweeps.cu"]
-    exported = "".join(p.read_text() for p in _build._sources("ablation"))
-    for tag in _build.NDLT_ABLATIONS:
-        assert exported.count(f"({tag},") == 1
-    assert _build.library_path("kernels") != _build.library_path("ablation")
+    assert 'extern "C" int sks_angle_check(' in sources[1].read_text()
     # The library name follows the sources: an edit rebuilds.
     assert len(_build._digest()) == 16
 

@@ -1,5 +1,7 @@
 """Port parity, the small utilities: ``utils/checks.py``, ``utils/flops.py``,
-``utils/profiling.py``, ``bench/harness.py`` and ``bench/solvers.py``.
+``utils/profiling.py``, ``bench/harness.py`` and ``bench/solvers.py``; and
+``utils/graphs.may_leave_eager``, the port's one rule for leaving eager
+PyTorch, which has no JAX counterpart.
 
 The flops registry is data, equal to the JAX package's.  The operation count
 of ``cost_analysis`` (the counter of ``bench/roofline.py``) is held to the
@@ -10,8 +12,10 @@ checks give the JAX package's messages on the same batches, and
 harness's fields.
 """
 
+import contextlib
 import dataclasses
 import os
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import pytest
@@ -28,6 +32,7 @@ import sks_tpu_torch.utils.checks as tc
 import sks_tpu_torch.utils.flops as tfl
 from sks_tpu_torch.bench.solvers import REFERENCE_B_SWEEP, bench_solver
 from sks_tpu_torch.ops import SOLVERS_H
+from sks_tpu_torch.utils.graphs import may_leave_eager
 from sks_tpu_torch.utils.profiling import (
     annotate,
     cost_analysis,
@@ -127,3 +132,26 @@ def test_bench_solver_at_b10_on_the_cpu(name):
     res = bench_solver(name, 10, budget_s=0.05, device="cpu")
     assert isinstance(res, th.BenchResult) and res.seconds_per_call > 0
     assert REFERENCE_B_SWEEP[1] == 10 and REFERENCE_B_SWEEP[-1] == 1_000_000
+
+
+
+@pytest.mark.parametrize(
+    "case", ["card", "cpu", "requires_grad", "no_grad", "vmap", "grad"])
+def test_one_rule_for_leaving_eager_pytorch(case):
+    """``may_leave_eager``, which the tail kernels' routes and the graph
+    replays take: only for a first tensor on the card, with no autograd
+    graph to record and no torch.func transform active.  A namespace with
+    ``is_cuda`` and ``requires_grad`` stands in for a CUDA tensor."""
+    card = SimpleNamespace(is_cuda=True, requires_grad=False)
+    needs_grad = SimpleNamespace(is_cuda=True, requires_grad=True)
+    if case in ("vmap", "grad"):
+        seen = []
+        getattr(torch.func, case)(
+            lambda x: seen.append(may_leave_eager(card)) or x.sum())(
+                torch.zeros(2))
+        assert seen == [False]
+        return
+    with torch.no_grad() if case == "no_grad" else contextlib.nullcontext():
+        ok = may_leave_eager(torch.zeros(2) if case == "cpu" else card,
+                             needs_grad if "grad" in case else card)
+    assert ok == (case in ("card", "no_grad"))
