@@ -649,11 +649,11 @@ def sharded_phase(torch, dev, check, smi, emit, vo_runs, ransac_problem,
         launches = dict(K.LAUNCHES)
         row["launches"] = {k: v for k, v in launches.items() if v}
         check(without_tail(row["launches"])
-              == {"aca_solve": 1, "aca_solve_score": 3}
+              == {"aca_solve": 1, "score_h": 1, "aca_solve_score": 3}
               and row["launches"].get("irls_refine", 0) >= 2,
-              f"sharded: K1 once (general RANSAC), K2 once for each of the "
-              f"fused RANSAC, frames_to_poses and planar_slam, the IRLS "
-              f"refit behind each fit: {row}")
+              f"sharded: K1 and the scoring kernel once (general RANSAC), "
+              f"K2 once for each of the fused RANSAC, frames_to_poses and "
+              f"planar_slam, the IRLS refit behind each fit: {row}")
 
         # Against the single-device forms on the card.
         idx = sample_minimal_sets(pair_generators(11, 1, device=dev)[0],
@@ -823,6 +823,9 @@ def main() -> int:
     kernel_sources = {
         "aca_solve_score": ("sks_tpu_torch/csrc/aca.cu",
                             "sks_tpu/kernels/aca_pallas.py:197"),
+        "score_h": ("sks_tpu_torch/csrc/score.cu",
+                    "none (sks_tpu/robust/ransac.py score_hypotheses, "
+                    "left to XLA)"),
         **{solve.key: (solve.source, solve.replaces)
            for solve in (*SOLVE_KERNELS.values(), *FP64_SOLVE_KERNELS.values())},
     }
@@ -957,6 +960,115 @@ def main() -> int:
             {k: pairs * b * (per_hyp.get(k, 0) + n * per_pair[k])
              for k in per_pair})
 
+
+    # ---- 4a'. the scoring kernel of the eager chunk (csrc/score.cu) ---------
+    # Chunks of K1's hypotheses at 50% outliers (every 11th minimal set
+    # degenerate: NaN; every 7th H scaled to a norm of 1e25: its adjugate
+    # overflows) against score_hypotheses and the plain version, both on the
+    # card: 'inliers' equal, 'msac' / 'magsac' within 2e-6 relative (the
+    # order of the sum over points), the same launch twice bit-equal.  Then
+    # its device ms at the adaptive loop's first and largest chunks beside
+    # score_hypotheses' and the plain version's, and its bound: the plain
+    # version's arithmetic at the float32 rate against 40 B a hypothesis and
+    # 20 B a point moved.
+    from sks_tpu_torch.bench.table8 import median_device_ms
+    from sks_tpu_torch.kernels import score_cuda as KSC
+    from sks_tpu_torch.ops import aca_valid_mask
+
+    def solved_chunk(b, n, keep):
+        src, tar, _ = random_correspondences(gen, (), n, 0.5)
+        tar = tar.clone()
+        tar[:n // 2] = torch.rand((n // 2, 2), generator=gen,
+                                  device=dev) * 640.0
+        idx = sample_minimal_sets(gen, n, b)
+        idx[::11, 1] = idx[::11, 0]
+        s4, t4 = src[idx], tar[idx]
+        h = K.from_soa_h(K.aca_solve_soa(K.to_soa(s4), K.to_soa(t4)))
+        h = torch.where(aca_valid_mask(s4, t4)[:, None, None], h,
+                        torch.full_like(h, torch.nan))
+        h[::7] = h[::7] / torch.linalg.vector_norm(
+            h[::7], dim=(-2, -1), keepdim=True) * 1e25
+        mask = torch.rand(n, generator=gen, device=dev) < keep
+        return h, src, tar, (None if keep == 1.0 else mask)
+
+    def score_kw(scoring):
+        return (dict(sigma_max=9.0, magsac_k=R._MAGSAC_K)
+                if scoring == "magsac" else {})
+
+    score_cases, score_rel = [], 0.0
+    errors["score_h"] = 0.0
+    for b, n, keep in ((R.ADAPTIVE_MAX_CHUNK, 2000, 1.0), (256, 2000, 1.0),
+                       (4096, 1999, 0.9), (1024, 384, 0.5)):
+        h, src, tar, mask = solved_chunk(b, n, keep)
+        for scoring in ("inliers", "msac", "magsac"):
+            kw = score_kw(scoring)
+            got = KSC.score_h(h, src, tar, 3.0, mask, scoring, **kw)
+            again = KSC.score_h(h, src, tar, 3.0, mask, scoring, **kw)
+            plain = KSC.score_h_plain(h, src, tar, 3.0, mask, scoring, **kw)
+            want, _ = R.score_hypotheses(h, src, tar, 3.0, mask, scoring)
+            d = (got - want).abs()
+            rel = (d / want.abs().clamp(min=1e-3)).max().item()
+            case = {"B": b, "N": n, "keep": keep, "scoring": scoring,
+                    "grid": K.score_grid(1, b, n),
+                    "max_abs_diff": d.max().item(), "max_rel_diff": rel,
+                    "max_rel_diff_plain": ((got - plain).abs()
+                                           / plain.abs().clamp(min=1e-3)
+                                           ).max().item(),
+                    "nonfinite": int((want == -1).sum()),
+                    "max_score": want.max().item(),
+                    "same_twice": torch.equal(got, again),
+                    "equal": torch.equal(got, want),
+                    "equal_plain": torch.equal(got, plain)}
+            score_cases.append(case)
+            errors["score_h"] = max(errors["score_h"], case["max_abs_diff"])
+            check(case["same_twice"], f"score_h is not reproducible: {case}")
+            check(torch.equal(got == -1, want == -1),
+                  f"score_h's non-finite hypotheses: {case}")
+            if scoring == "inliers":
+                check(case["equal"] and case["equal_plain"],
+                      f"score_h inliers differ from score_hypotheses: {case}")
+            else:
+                score_rel = max(score_rel, rel, case["max_rel_diff_plain"])
+                check(rel <= 2e-6 and case["max_rel_diff_plain"] <= 2e-6,
+                      f"score_h {scoring} beyond 2e-6 relative: {case}")
+            del plain, want
+    # The kernel's work, counted from the plain version at N = 1 and 2.
+    h1 = torch.eye(3).reshape(1, 3, 3) + 0.01
+    per_h, per_pt = (roofline.count_ops(
+        lambda s, t: KSC.score_h_plain(h1, s, t, 3.0), torch.rand(k, 2),
+        torch.rand(k, 2)) for k in (1, 2))
+    score_pair_ops = {k: per_pt[k] - per_h.get(k, 0) for k in per_pt}
+    score_h_ops = {k: per_h[k] - score_pair_ops.get(k, 0) for k in per_h}
+
+    def score_bound(b, n):
+        return roofline.bound_ms(
+            40 * b + 20 * n,
+            {k: b * score_h_ops.get(k, 0) + b * n * score_pair_ops[k]
+             for k in score_pair_ops})
+
+    score_times = {}
+    for b in (R.ADAPTIVE_MAX_CHUNK, 256):
+        h, src, tar, _ = solved_chunk(b, 2000, 1.0)
+        big = b == R.ADAPTIVE_MAX_CHUNK
+        ms_k, ms_e = paired_ms(
+            lambda: KSC.score_h(h, src, tar, 3.0),
+            lambda: R.score_hypotheses(h, src, tar, 3.0),
+            runs=9 if big else 25, reps=3 if big else 10)
+        bound = score_bound(b, 2000)
+        score_times[f"B{b}_N2000"] = {
+            "B": b, "N": 2000, "ms": ms_k, "score_hypotheses_ms": ms_e,
+            "plain_ms": median_device_ms(
+                lambda: KSC.score_h_plain(h, src, tar, 3.0), 5,
+                2 if big else 10),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_share": bound[0] / ms_k,
+            "pairs_per_s": b * 2000 / (ms_k * 1e-3),
+            "grid": K.score_grid(1, b, 2000)}
+    emit("score_h_vs_score_hypotheses", bound="inliers equal; msac, magsac "
+         "2e-6 relative (sum order); same launch twice bit-equal",
+         max_rel_diff_soft=score_rel, cases=score_cases,
+         ops_per_hypothesis=score_h_ops, ops_per_pair=score_pair_ops,
+         times=score_times, card=smi)
 
     # ---- 4b. K3 and the four K4 instances against their plain versions -----
     # Bound: equal, value for value (a NaN where the plain version has one),
@@ -1265,9 +1377,21 @@ def main() -> int:
     counted("50pct", lambda: sks_tpu_torch.find_homography(
         *problems["50pct"][0][:2], ransac_reproj_threshold=3.0,
         confidence=0.999))
-    counted("95pct_fused", lambda: sks_tpu_torch.find_homography(
-        *problem95[:2], method="fused", ransac_reproj_threshold=3.0,
-        confidence=0.999, max_iters=iters95))
+    # The shipped gate lies past the schedule (no fused chunk wins, 6a'), so
+    # the fused stages run here from a gate of 65,536, as the CPU tests set
+    # one of their own.
+    gate95 = 1 << 16
+
+    def fused95():
+        shipped, R.FUSED_ADAPTIVE_MIN_CHUNK = R.FUSED_ADAPTIVE_MIN_CHUNK, gate95
+        try:
+            return sks_tpu_torch.find_homography(
+                *problem95[:2], method="fused", ransac_reproj_threshold=3.0,
+                confidence=0.999, max_iters=iters95)
+        finally:
+            R.FUSED_ADAPTIVE_MIN_CHUNK = shipped
+
+    counted("95pct_fused", fused95)
     counted("50pct_fp64", lambda: sks_tpu_torch.find_homography(
         *problem64[:2], ransac_reproj_threshold=3.0, confidence=0.999))
     counted("50pct_prosac_fused", lambda: sks_tpu_torch.find_homography(
@@ -1309,20 +1433,24 @@ def main() -> int:
               f"a float32 adaptive fit refits its top-K and polishes its "
               f"model in one launch each: {adaptive[name]}")
     made = without_tail(adaptive["50pct"]["launches"])
-    check(set(made) == {"aca_solve"} and 1 <= made["aca_solve"] <= 2,
-          f"the 50% fit must stop within the first two chunks on K1: {made}")
-    # method='fused': the stages from FUSED_ADAPTIVE_MIN_CHUNK on run K2, one
-    # launch a chunk; the smaller ones before them K1.
+    check(set(made) == {"aca_solve", "score_h"}
+          and 1 <= made["aca_solve"] == made["score_h"] <= 2,
+          f"the 50% fit must stop within the first two chunks on K1, each "
+          f"scored in one launch: {made}")
+    # method='fused': the stages from the gate on run K2, one launch a chunk;
+    # the smaller ones before them K1.
     made = without_tail(adaptive["95pct_fused"]["launches"])
     sizes = schedule(iters95)[:sum(made.values())]
-    fused_chunks = sum(c >= R.FUSED_ADAPTIVE_MIN_CHUNK for c in sizes)
+    fused_chunks = sum(c >= gate95 for c in sizes)
     adaptive["95pct_fused"].update(
         max_iters=iters95, chunks=len(sizes), hypotheses=sum(sizes),
-        fused_chunks=fused_chunks)
-    check(set(made) <= {"aca_solve", "aca_solve_score"}
+        fused_gate=gate95, fused_chunks=fused_chunks)
+    check(set(made) <= {"aca_solve", "aca_solve_score", "score_h"}
           and made.get("aca_solve_score", 0) == fused_chunks >= 1
-          and made.get("aca_solve", 0) == len(sizes) - fused_chunks,
-          f"the fused adaptive fit must launch K2 once a fused chunk: "
+          and made.get("aca_solve", 0) == len(sizes) - fused_chunks
+          == made.get("score_h", 0),
+          f"the fused adaptive fit must launch K2 once a fused chunk, K1 "
+          f"and the scoring kernel once an eager one: "
           f"{adaptive['95pct_fused']}")
     made = adaptive["50pct_fp64"]["launches"]
     check(set(made) == {"fp64_aca"} and runs["50pct_fp64"][0][0].dtype
@@ -1495,9 +1623,10 @@ def main() -> int:
     for name in ("fused", "fused_again"):
         check(without_tail(vo_runs[name][2]) == {"aca_solve_score": 1},
               f"a fused frames_to_poses launches K2 once: {pipeline[name]}")
-    check(without_tail(vo_runs["general"][2]) == {"aca_solve": 15},
-          f"a general frames_to_poses launches K1 once a pair: "
-          f"{pipeline['general']}")
+    check(without_tail(vo_runs["general"][2])
+          == {"aca_solve": 15, "score_h": 15},
+          f"a general frames_to_poses launches K1 and the scoring kernel "
+          f"once a pair: {pipeline['general']}")
     check(without_tail(vo_runs["fused_esm_vga"][2]) == {"aca_solve_score": 1},
           f"frames_to_poses(esm_iters=8) launches K2 once: "
           f"{pipeline['fused_esm_vga']}")
@@ -1927,18 +2056,25 @@ def main() -> int:
     # (bench/fused_adaptive.py: per chunk and end to end.)  The shipped
     # FUSED_ADAPTIVE_MIN_CHUNK must be what this run measures, or one step of
     # the size grid away (the two chunks tie near a point count's crossover).
+    # A fused chunk that wins at no size of the grid (crossover None) is the
+    # step past it, where a shipped value past the grid lies.
     fa = fused_adaptive.run(generators=2)
     grid = list(fused_adaptive.CHUNK_SIZES)
-    check(fa["crossover_chunk"] is not None,
-          f"the fused chunk never wins: {fa['crossover']}")
-    check(R.FUSED_ADAPTIVE_MIN_CHUNK in grid,
-          f"FUSED_ADAPTIVE_MIN_CHUNK = {R.FUSED_ADAPTIVE_MIN_CHUNK} is not a "
-          f"size of the grid {grid}")
-    steps = abs(grid.index(fa["crossover_chunk"])
-                - grid.index(R.FUSED_ADAPTIVE_MIN_CHUNK))
+
+    def grid_step(size):
+        return len(grid) if size is None or size > grid[-1] else grid.index(
+            size)
+
+    check(R.FUSED_ADAPTIVE_MIN_CHUNK in grid
+          or R.FUSED_ADAPTIVE_MIN_CHUNK > grid[-1],
+          f"FUSED_ADAPTIVE_MIN_CHUNK = {R.FUSED_ADAPTIVE_MIN_CHUNK} is neither "
+          f"a size of the grid {grid} nor past it")
+    steps = abs(grid_step(fa["crossover_chunk"])
+                - grid_step(R.FUSED_ADAPTIVE_MIN_CHUNK))
     check(steps <= 1,
           f"FUSED_ADAPTIVE_MIN_CHUNK = {R.FUSED_ADAPTIVE_MIN_CHUNK} is "
-          f"{steps} grid steps from the measured {fa['crossover_chunk']}")
+          f"{steps} grid steps from the measured {fa['crossover_chunk']}: "
+          f"{fa['crossover']}")
     for row in fa["end_to_end"]:
         check(row["corner_err_px_max"] < 1.0, f"adaptive fit: {row}")
     emit("fused_adaptive", grid_steps_from_shipped=steps, **fa)
@@ -2085,7 +2221,6 @@ def main() -> int:
     # against its plain version, the eager refit, on the card: the fit's
     # shape (N = 2,000) and a VO pair's (the first 384 of its matches),
     # both top-4s of a 2,048-hypothesis fused chunk.
-    from sks_tpu_torch.bench.table8 import median_device_ms
     from sks_tpu_torch.kernels import irls_cuda as KI
 
     irls = {}
@@ -2191,8 +2326,10 @@ def main() -> int:
     print(smi, flush=True)
     # K1 and K2 at their main-path shapes (paired timing above); K3, K4 and
     # K5 at B = 2^20 from the Table-8 rows, kernel and plain version alike.
+    big_score = score_times[f"B{R.ADAPTIVE_MAX_CHUNK}_N2000"]
     timed = {"aca_solve": (times["k1_float32"]["ms"],
                            times["k1_float32"]["plain_ms"]),
+             "score_h": (big_score["ms"], big_score["plain_ms"]),
              "aca_solve_score": (times[f"k2_B{b2}_N2000"]["ms"],
                                  times[f"k2_B{b2}_N2000"]["plain_ms"])}
     for rows, registry in ((t8, SOLVE_KERNELS), (t8_64, FP64_SOLVE_KERNELS)):
@@ -2204,9 +2341,13 @@ def main() -> int:
     # (bench/roofline.py): bytes at 3.35 TB/s against arithmetic, counted
     # from the plain version by element type, each type at its own rate: 67
     # TFLOP/s in float32 and 34 in float64 (K5-ho and K5-ndlt do both).
-    bounds = {"aca_solve_score": k2_bound(b2, 1)}
+    bounds = {"aca_solve_score": k2_bound(b2, 1),
+              "score_h": score_bound(R.ADAPTIVE_MAX_CHUNK, 2000)}
     work = {"aca_solve_score": {"bytes_per_hyp": 68, "ops_per_hyp": per_hyp,
-                                "ops_per_pair": per_pair}}
+                                "ops_per_pair": per_pair},
+            "score_h": {"bytes_per_hyp": 40, "bytes_per_point": 20,
+                        "ops_per_hyp": score_h_ops,
+                        "ops_per_pair": score_pair_ops}}
     for registry, dt in ((SOLVE_KERNELS, torch.float32),
                          (FP64_SOLVE_KERNELS, torch.float64)):
         for solve in registry.values():

@@ -7,8 +7,9 @@ built with ``nvcc`` at first use and bound with ``ctypes``
 
 K1, K2: ``aca_cuda``; K3: ``sks_cuda``; K4 (four instances):
 ``baselines_cuda``; K5 (six kinds, float64): ``fp64_cuda``; the IRLS refit
-of RANSAC's top-K candidates and the annealed LM polish of the selected
-model, which replace no TPU kernel: ``irls_cuda``, ``polish_cuda``.
+of RANSAC's top-K candidates, the annealed LM polish of the selected
+model and the scoring of an eager chunk's solved hypotheses, which replace
+no TPU kernel: ``irls_cuda``, ``polish_cuda``, ``score_cuda``.
 ``LAUNCHES`` counts the launches of every kernel.  ``SOLVE_KERNELS`` maps
 each solver name to its float32 batched-solve kernel, ``FP64_SOLVE_KERNELS``
 to its float64 one.

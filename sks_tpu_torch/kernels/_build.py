@@ -118,6 +118,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
                    vp]
     fn.restype = ctypes.c_int
+    # h, src, tar, weights, out, scratch, B, N, chunks, chunk_points,
+    # scoring, t2, ks, gate, stream
+    fn = lib.sks_score_h_f32
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_float, vp]
+    fn.restype = ctypes.c_int
     # values, n, counts, stream
     fn = lib.sks_angle_check
     fn.argtypes = [vp, ctypes.c_int, vp, vp]

@@ -21,8 +21,10 @@ batch on CUDA in the kernel whose body is the registered solver's own core:
 a float32 batch in K1 for 'aca', K3 for 'sks', K4-GE for 'rho_ge'; a float64
 batch of those three in their instances of K5, the float64 solve.  'gpt_lu',
 'ho' and 'ndlt' stay on their eager ``SOLVERS_H`` forms, which are other
-formulations than their kernels' cores (as in the JAX package).
-``df64_scoring=True`` scores in float64 (``ops.fp64.residual2_fp64``).
+formulations than their kernels' cores (as in the JAX package).  A float32
+batch on CUDA is scored in one launch of ``kernels.score_cuda.score_h``
+(but 'lmeds' and float64 scoring).  ``df64_scoring=True`` scores in float64
+(``ops.fp64.residual2_fp64``).
 
 Randomness: draws come from an explicit ``torch.Generator``.  Its stream is
 not ``jax.random``'s, so every entry point also takes ``indices=``, a (B, 4)
@@ -50,6 +52,7 @@ from sks_tpu_torch.kernels import (
 )
 from sks_tpu_torch.kernels.aca_cuda import aca_solve_score_soa
 from sks_tpu_torch.kernels.irls_cuda import irls_refine
+from sks_tpu_torch.kernels.score_cuda import SCORINGS, score_h
 from sks_tpu_torch.ops import SOLVERS_H, aca_valid_mask, sks_valid_mask
 from sks_tpu_torch.ops.fp64 import residual2_fp64
 from sks_tpu_torch.ops.ndlt import ndlt_h
@@ -561,8 +564,18 @@ def _eval_chunk(generator, src, tar, config, point_mask, indices=None,
 
 def _eval_chunk_eager(generator, src, tar, config, point_mask, indices,
                       prosac_sizes):
-    """:func:`_eval_chunk` on the general path: every hypothesis solved and
-    scored by eager operations (the solve in its kernel where there is one)."""
+    """:func:`_eval_chunk` on the general path: every hypothesis solved (in
+    its kernel where there is one) and scored.
+
+    Float32 hypotheses scored 'inliers', 'msac' or 'magsac' without float64
+    scoring, where they may leave eager PyTorch
+    (``utils.graphs.may_leave_eager``: on the card, no gradient to record,
+    no torch.func transform), are scored in one launch of the kernel
+    ``kernels.score_cuda.score_h`` (counted by ``ransac.score_kernel``),
+    which writes no (B, N) tensor; the winner's inlier mask is then
+    :func:`score_hypotheses`' on that one hypothesis.  Everything else is
+    scored by :func:`score_hypotheses` on the whole batch.
+    """
     idx = _minimal_sets(generator, src, config, point_mask, indices,
                         prosac_sizes)
     s4 = src[idx]  # (B, 4, 2)
@@ -575,12 +588,24 @@ def _eval_chunk_eager(generator, src, tar, config, point_mask, indices,
         # finite hypotheses score -1 instead of garbage, as in the JAX package.
         valid = valid_mask(s4, t4)
         h = torch.where(valid[..., None, None], h, torch.full_like(h, torch.nan))
-    scores, inl = score_hypotheses(
-        h, src, tar, config.threshold, point_mask, config.scoring,
-        config.sigma_max, config.df64_scoring,
-    )
-    top_idx = _top_k(scores, max(1, min(config.lo_candidates,
-                                        config.num_hypotheses)))
+    k = max(1, min(config.lo_candidates, config.num_hypotheses))
+    score = partial(score_hypotheses, src=src, tar=tar,
+                    threshold=config.threshold, point_mask=point_mask,
+                    scoring=config.scoring, sigma_max=config.sigma_max,
+                    df64=config.df64_scoring)
+    if (config.scoring in SCORINGS and not config.df64_scoring
+            and graphs.may_leave_eager(src, tar, h)
+            and h.dtype == src.dtype == tar.dtype == torch.float32):
+        sm = (config.sigma_max if config.sigma_max is not None
+              else 3.0 * config.threshold)
+        scores = score_h(h, src, tar, config.threshold, point_mask,
+                         config.scoring, sigma_max=sm, magsac_k=_MAGSAC_K)
+        count("ransac.score_kernel")
+        top_idx = _top_k(scores, k)
+        h_top = h[top_idx]
+        return h_top, scores[top_idx], score(h_top[:1])[1][0]
+    scores, inl = score(h)
+    top_idx = _top_k(scores, k)
     return h[top_idx], scores[top_idx], _take(inl, top_idx[0])
 
 
@@ -816,29 +841,28 @@ def _fused_batch_tail(config, counts, s4, t4, src, tar, point_mask=None):
                  for f in ("h", "inlier_mask", "num_inliers", "score"))
 
 
+#: Default cap on the geometric chunk growth.  A parameter of the schedule,
+#: kept at the JAX package's value: it decides after which chunk a fit
+#: stops, so the two packages stop alike only with the same cap.
+ADAPTIVE_MAX_CHUNK = 131072
+
 #: Chunk size of the adaptive loop from which a ``config.fused`` stage runs
 #: the fused kernel (K2, then the eager re-score of its top-K) instead of the
-#: eager chunk (K1, then eager scoring of every hypothesis).  Measured on an
+#: eager chunk (K1, then the scoring kernel ``score_h``).  Measured on an
 #: NVIDIA H100 80GB HBM3, 700.00 W, by ``bench/fused_adaptive.py``: host ms
 #: of one chunk to a ``synchronize``, on the schedule's size grid (256 x 4^k
-#: and the cap), at N = 512 and 2,000 points.  The fused chunk costs 3-6 ms
-#: of host at every size (its re-score is ~190 small launches); the eager
-#: chunk 2-3 ms until its (B, N) passes outgrow that.  At N = 2,000 the
-#: fused chunk loses at 4,096 (4.0 against 3.0 ms) and wins from 16,384
-#: (2.8 against 8.3); at N = 512 the two tie at 16,384 (2.9 against 2.8)
-#: and the fused chunk wins from 65,536 (4.1 against 8.7).  The value is the
-#: smallest size from which the fused chunk is no slower at both point
-#: counts (``crossover_chunk``).  That it equals the JAX package's constant
-#: is a coincidence of the two-point-count rule, not a copy: the TPU value
-#: was read at N = 2,000, where this card's crossover is 16,384.  Stages
-#: below the value run eager chunks even with ``config.fused``.
-FUSED_ADAPTIVE_MIN_CHUNK = 65536
-
-#: Default cap on the geometric chunk growth (a distinct quantity from the
-#: fused gate above).  A parameter of the schedule, kept at the JAX package's
-#: value: it decides after which chunk a fit stops, so the two packages stop
-#: alike only with the same cap.
-ADAPTIVE_MAX_CHUNK = 131072
+#: and the cap), at N = 512 and 2,000 points, in four runs.  Since the eager
+#: chunk scores in one launch it is the faster at every size of the grid at
+#: both point counts, by 0.99-2.33 ms of host (1.8-4.7 ms against 2.8-6.9),
+#: and on the device too (1.46-1.50 against 1.72-1.77 ms at 131,072 x
+#: 2,000): the fused chunk launches 262 kernels to the eager chunk's 147,
+#: most of them its eager re-solve and re-score of the K winners.  (With
+#: the winners re-solved in K1 it launches 160 and still loses, by 0.13-1.21
+#: ms.)  So the value lies past the grid, where ``crossover_chunk`` reads
+#: None: no stage of a schedule capped at ``ADAPTIVE_MAX_CHUNK`` runs fused,
+#: and ``config.fused`` adaptive fits run eager chunks (the JAX package's
+#: TPU value is 65,536).
+FUSED_ADAPTIVE_MIN_CHUNK = 2 * ADAPTIVE_MAX_CHUNK
 
 
 def _chunk_schedule(chunk0: int, max_chunks: int, growth: int,

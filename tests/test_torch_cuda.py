@@ -434,16 +434,23 @@ def test_adaptive_fit_on_cuda_solves_its_chunks_in_the_kernel(dev, dtype, key):
     chunks = K.LAUNCHES[key] - before[key]
     assert 1 <= chunks <= 4 and reads[0] == chunks + 1
     assert K.LAUNCHES["aca_solve_score"] == before["aca_solve_score"]
+    # A float32 chunk is scored in one launch of its kernel; float64 eagerly.
+    assert K.LAUNCHES["score_h"] - before["score_h"] == (
+        chunks if dtype == torch.float32 else 0)
     assert res.h.dtype == dtype and _corner_err(res.h, h_true) < 1.0
     assert (res.inlier_mask == inl).float().mean().item() >= 0.95
     h, mask = sks_tpu_torch.find_homography(src, tar, confidence=0.999)
     assert _corner_err(h, h_true) < 1.0
 
 
-def test_adaptive_fused_fit_on_cuda_launches_k2_once_a_fused_chunk(dev):
+def test_adaptive_fused_fit_on_cuda_launches_k2_once_a_fused_chunk(
+        dev, monkeypatch):
     import sks_tpu_torch
     from sks_tpu_torch.robust import ransac as R
 
+    # The shipped gate lies past the schedule (no fused chunk wins on the
+    # card, bench/fused_adaptive.py); the fused stages run from one inside.
+    monkeypatch.setattr(R, "FUSED_ADAPTIVE_MIN_CHUNK", 1 << 16)
     src, tar, h_true, inl = _contaminated(dev, 8, 2000, 0.9)
     before = dict(K.LAUNCHES)
     h, mask = sks_tpu_torch.find_homography(
@@ -616,8 +623,8 @@ def test_vo_trajectory_launches_k2_once_for_all_pairs(vo_sequence, fused):
                                         **kw)
     torch.cuda.synchronize()
     made = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
-    expect = ({"aca_solve_score": 1, "aca_solve": 0} if fused
-              else {"aca_solve_score": 0, "aca_solve": 5})
+    expect = ({"aca_solve_score": 1, "aca_solve": 0, "score_h": 0} if fused
+              else {"aca_solve_score": 0, "aca_solve": 5, "score_h": 5})
     assert {k: made[k] for k in expect} == expect
     assert torch.isfinite(out["poses"]).all()
     before = dict(K.LAUNCHES)
@@ -626,7 +633,8 @@ def test_vo_trajectory_launches_k2_once_for_all_pairs(vo_sequence, fused):
     torch.cuda.synchronize()
     k2 = K.LAUNCHES["aca_solve_score"] - before["aca_solve_score"]
     k1 = K.LAUNCHES["aca_solve"] - before["aca_solve"]
-    assert (k2, k1) == ((2, 0) if fused else (0, 5 + 4))
+    scored = K.LAUNCHES["score_h"] - before["score_h"]
+    assert (k2, k1, scored) == ((2, 0, 0) if fused else (0, 5 + 4, 5 + 4))
     assert out["closure_inliers"].shape == (4,)
 
 
@@ -1225,6 +1233,150 @@ def test_tail_kernels_route_by_what_they_observe(dev, kernel, case):
     with pytest.raises(TypeError):
         wrapper(h.double(), src.double(), tar.double())
     assert K.LAUNCHES[kernel] == before
+
+
+# ---- the scoring kernel of the eager chunk (kernels/score_cuda) --------------
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n", [2000, 1999, 384])
+@pytest.mark.parametrize("b", [256, 4096, 131072])
+def test_score_kernel_equals_score_hypotheses(dev, b, n, masked):
+    """Chunks of ACA hypotheses with NaN (degenerate) and adjugate-overflow
+    hypotheses (``test_torch_score.score_cases``): 'inliers' scores equal
+    ``score_hypotheses``' on the card, 'msac' and 'magsac' within 2e-6
+    relative; one launch a call, the same bits twice, and the plain
+    version's scores on the CPU within the same bounds."""
+    from test_torch_score import (
+        THRESHOLD,
+        assert_scores_match,
+        kernel_kwargs,
+        score_cases,
+    )
+
+    from sks_tpu_torch.kernels import score_cuda as SC
+    from sks_tpu_torch.robust.ransac import score_hypotheses
+
+    h, src, tar, mask = score_cases(dev, b, n, masked)
+    for scoring in ("inliers", "msac", "magsac"):
+        kw = kernel_kwargs(scoring)
+        before = K.LAUNCHES["score_h"]
+        got = SC.score_h(h, src, tar, THRESHOLD, mask, scoring, **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["score_h"] == before + 1
+        want, _ = score_hypotheses(h, src, tar, THRESHOLD, mask, scoring)
+        assert_scores_match(got, want, scoring)
+        assert torch.equal(got, SC.score_h(h, src, tar, THRESHOLD, mask,
+                                           scoring, **kw))
+        if b <= 4096:
+            plain = SC.score_h_plain(h.cpu(), src.cpu(), tar.cpu(), THRESHOLD,
+                                     None if mask is None else mask.cpu(),
+                                     scoring, **kw)
+            assert_scores_match(got.cpu(), plain, scoring)
+        del want
+
+
+@pytest.mark.parametrize("case", ["card", "requires_grad", "vmap"])
+def test_eager_chunks_score_in_the_kernel_once_a_chunk(dev, case):
+    """The adaptive loop's eager chunks on the card: one launch of the
+    scoring kernel a chunk (as many as K1's), each counted by
+    ``ransac.score_kernel``; with a gradient to record or under a
+    torch.func transform the chunk scores eagerly (no launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sks_tpu_torch.robust import ransac as R
+    from sks_tpu_torch.utils import profiling
+
+    src, tar, h_true, _ = _contaminated(dev, 12, 2000, 0.7)
+    cfg = RansacConfig(num_hypotheses=256, threshold=3.0)
+    total = sum(c * k for c, k in R._chunk_schedule(256, 64, 4, 2,
+                                                    R.ADAPTIVE_MAX_CHUNK))
+    # Draws given, so that no random operation runs under the transform.
+    idx = sample_minimal_sets(torch.Generator(device=dev).manual_seed(3),
+                              2000, total)
+
+    def fit(s=src, t=tar):
+        return R.ransac_homography_adaptive(None, s, t, cfg, 0.999, 64,
+                                            indices=idx)
+
+    fit()
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        if case == "card":
+            res = fit()
+        elif case == "requires_grad":
+            res = fit(t=tar.clone().requires_grad_())
+        else:
+            torch.func.vmap(lambda x: fit().h * x)(torch.ones(1, device=dev))
+        torch.cuda.synchronize()
+    chunks = K.LAUNCHES["aca_solve"] - before["aca_solve"]
+    scored = K.LAUNCHES["score_h"] - before["score_h"]
+    counted = profiling.counters().get("ransac.score_kernel")
+    assert chunks >= 2
+    if case == "card":
+        assert scored == chunks == counted
+        assert _corner_err(res.h, h_true) < 1.0
+    else:
+        assert scored == 0 and counted is None
+
+
+def test_an_eager_chunk_allocates_no_hypothesis_by_point_tensor(dev):
+    """The cap's chunk, 131,072 hypotheses against 2,000 points, scored in
+    the kernel: its peak memory stays under B x N bytes, less than one
+    (B, N) tensor of bools."""
+    from sks_tpu_torch.robust import ransac as R
+
+    src, tar, _, _ = _contaminated(dev, 13, 2000, 0.9)
+    cfg = RansacConfig(num_hypotheses=R.ADAPTIVE_MAX_CHUNK, threshold=3.0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    R._eval_chunk(gen, src, tar, cfg, None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = K.LAUNCHES["score_h"]
+    R._eval_chunk(gen, src, tar, cfg, None)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["score_h"] == before + 1
+    assert torch.cuda.max_memory_allocated() - base < (
+        R.ADAPTIVE_MAX_CHUNK * 2000)
+
+
+def test_adaptive_fit_at_90_percent_outliers_card_against_cpu(dev):
+    """``ransac_homography_adaptive`` at 90% outliers on the same draws
+    (``indices=``): on the card its chunks are scored in the kernel, on the
+    CPU eagerly.  The same chunks, the same inlier mask, corners within
+    1e-2 px (the tails' kernels against their eager forms)."""
+    from sks_tpu_torch.robust import ransac as R
+
+    src, tar, h_true, inl = _contaminated(dev, 14, 1000, 0.9)
+    cfg = RansacConfig(num_hypotheses=256, threshold=3.0)
+    total = sum(c * k for c, k in R._chunk_schedule(256, 4096, 4, 2,
+                                                    R.ADAPTIVE_MAX_CHUNK))
+    idx = sample_minimal_sets(torch.Generator(device=dev).manual_seed(6),
+                              1000, total)
+    counts = []
+    real = R._eval_chunk
+
+    def counted(*args, **kwargs):
+        counts[-1] += 1
+        return real(*args, **kwargs)
+
+    before = K.LAUNCHES["score_h"]
+    R._eval_chunk = counted
+    try:
+        out = []
+        for s, t, i in ((src, tar, idx), (src.cpu(), tar.cpu(), idx.cpu())):
+            counts.append(0)
+            out.append(R.ransac_homography_adaptive(None, s, t, cfg, 0.999,
+                                                    4096, indices=i))
+    finally:
+        R._eval_chunk = real
+    assert K.LAUNCHES["score_h"] - before == counts[0] == counts[1] >= 6
+    assert torch.equal(out[0].inlier_mask.cpu(), out[1].inlier_mask)
+    assert _corner_gap(out[0].h.cpu(), out[1].h) <= 1e-2
+    assert _corner_err(out[0].h, h_true) < 1.0
 
 
 def test_find_homography_on_o50_requests_stays_inside_the_benchmark_limits(

@@ -43,6 +43,7 @@ from sks_tpu_torch.kernels import _build
 from sks_tpu_torch.kernels.fp64_cuda import fp64_solve_soa
 from sks_tpu_torch.kernels.irls_cuda import irls_refine
 from sks_tpu_torch.kernels.polish_cuda import anneal_polish
+from sks_tpu_torch.kernels.score_cuda import score_h
 from sks_tpu_torch.ops import aca_h
 from sks_tpu_torch.robust.ransac import RansacConfig, fused_kernel_threshold
 
@@ -426,12 +427,15 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
                 2, 3.0)
     anneal_polish(torch.eye(3), torch.zeros((6, 2)), torch.zeros((6, 2)),
                   3.0, None, (1.0,), 1)
+    score_h(torch.eye(3)[None], torch.zeros((6, 2)), torch.zeros((6, 2)),
+            3.0)
     assert tk.LAUNCHES == before
     assert set(tk.LAUNCHES) == {"aca_solve", "aca_solve_score", "sks_solve",
                                 "ge_solve", "gpt_solve", "ho_solve",
                                 "ndlt_solve", "fp64_aca", "fp64_sks",
                                 "fp64_ge", "fp64_gpt", "fp64_ho",
-                                "fp64_ndlt", "irls_refine", "anneal_polish"}
+                                "fp64_ndlt", "irls_refine", "anneal_polish",
+                                "score_h"}
 
 
 def test_build_flags_keep_ieee_scoring():
@@ -441,7 +445,8 @@ def test_build_flags_keep_ieee_scoring():
     sources = _build._sources()
     assert [p.name for p in sources] == ["aca.cu", "angle_check.cu",
                                          "baselines.cu", "fp64.cu",
-                                         "irls.cu", "polish.cu", "sks.cu"]
+                                         "irls.cu", "polish.cu", "score.cu",
+                                         "sks.cu"]
     assert 'extern "C" int sks_angle_check(' in sources[1].read_text()
     # The library name follows the sources: an edit rebuilds.
     assert len(_build._digest()) == 16

@@ -136,14 +136,22 @@ def test_bench_solver_at_b10_on_the_cpu(name):
 
 
 @pytest.mark.parametrize(
-    "case", ["card", "cpu", "requires_grad", "no_grad", "vmap", "grad"])
-def test_one_rule_for_leaving_eager_pytorch(case):
-    """``may_leave_eager``, which the tail kernels' routes and the graph
-    replays take: only for a first tensor on the card, with no autograd
-    graph to record and no torch.func transform active.  A namespace with
-    ``is_cuda`` and ``requires_grad`` stands in for a CUDA tensor."""
+    "case", ["card", "cpu", "requires_grad", "no_grad", "vmap", "grad",
+             "chunk", "chunk_requires_grad", "chunk_vmap"])
+def test_one_rule_for_leaving_eager_pytorch(case, monkeypatch):
+    """``may_leave_eager``, which the tail kernels' routes, the eager
+    chunk's scoring and the graph replays take: only for a first tensor on
+    the card, with no autograd graph to record and no torch.func transform
+    active.  A namespace with ``is_cuda`` and ``requires_grad`` stands in
+    for a CUDA tensor.  The eager chunk (``chunk`` cases) asks the rule with
+    its points standing in for the card's: it then scores in the kernel's
+    wrapper once and counts ``ransac.score_kernel`` once, but with a
+    gradient to record or under ``torch.func.vmap`` it scores eagerly."""
     card = SimpleNamespace(is_cuda=True, requires_grad=False)
     needs_grad = SimpleNamespace(is_cuda=True, requires_grad=True)
+    if case.startswith("chunk"):
+        _eager_chunk_routes(case, card, monkeypatch)
+        return
     if case in ("vmap", "grad"):
         seen = []
         getattr(torch.func, case)(
@@ -155,3 +163,36 @@ def test_one_rule_for_leaving_eager_pytorch(case):
         ok = may_leave_eager(torch.zeros(2) if case == "cpu" else card,
                              needs_grad if "grad" in case else card)
     assert ok == (case in ("card", "no_grad"))
+
+
+def _eager_chunk_routes(case, card, monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    import sks_tpu_torch.robust.ransac as tr
+    from sks_tpu_torch.kernels.score_cuda import score_h_plain
+    from sks_tpu_torch.utils import graphs, profiling
+
+    g = torch.Generator().manual_seed(5)
+    src, tar = (torch.rand((300, 2), generator=g) * 640.0 for _ in range(2))
+    idx = tr.sample_minimal_sets(g, 300, 256)
+    cfg = tr.RansacConfig(num_hypotheses=256, threshold=3.0)
+    # The card's rule, with the points standing in for the card's.
+    monkeypatch.setattr(graphs, "may_leave_eager",
+                        lambda first, *rest: may_leave_eager(card, *rest))
+    launched = []
+    monkeypatch.setattr(tr, "score_h", lambda *a, **k: launched.append(1)
+                        or score_h_plain(*a, **k))
+    if case == "chunk_requires_grad":
+        tar.requires_grad_()
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        if case == "chunk_vmap":
+            torch.func.vmap(
+                lambda x: tr._eval_chunk(None, src, tar, cfg, None, idx)[1]
+                * x)(torch.ones(1))
+        else:
+            tr._eval_chunk(None, src, tar, cfg, None, idx)
+    kernel = case == "chunk"
+    assert launched == [1] * kernel
+    assert profiling.counters().get("ransac.score_kernel") == (
+        1 if kernel else None)
