@@ -219,21 +219,22 @@ def test_ndlt_normalized_matches_jax():
 
 
 def test_ndlt_core_jacobi_matches_jax():
-    """ndlt_core(eig='jacobi', 6 sweeps) against the JAX core, jitted (~30 s
-    on the CPU; the inverse-iteration form is in test_torch_solvers.py).
-    The 9x9 eigensolve amplifies XLA's FMA contraction: measured 1.7e-4 on
-    the worst of 256 quads and 1.3e-6 on the median, after
-    normalize_h('fro')."""
+    """ndlt_core(eig='jacobi', 6 sweeps) against the JAX core, evaluated op
+    by op on JAX arrays: jitted, its 9x9 eigensolve takes ~40 s to compile on
+    the CPU (the inverse-iteration form is in test_torch_solvers.py, which
+    gives the bounds).  Measured 1.1e-5 on the worst of 256 quads and 0 on
+    the median, after normalize_h('fro')."""
     src, tar = quads(14, 256)
     tcomps = [torch.from_numpy(src).reshape(-1, 8)[:, i] for i in range(8)]
     tcomps += [torch.from_numpy(tar).reshape(-1, 8)[:, i] for i in range(8)]
-    hj = jax.jit(lambda s, t: jnp.stack(jndlt.ndlt_core(
-        *[s.reshape(-1, 8)[:, i] for i in range(8)],
-        *[t.reshape(-1, 8)[:, i] for i in range(8)]), -1))(src, tar)
+    js, jt = jnp.asarray(src).reshape(-1, 8), jnp.asarray(tar).reshape(-1, 8)
+    with jax.disable_jit():
+        hj = jnp.stack(jndlt.ndlt_core(*[js[:, i] for i in range(8)],
+                                       *[jt[:, i] for i in range(8)]), -1)
     ht = torch.stack(tndlt.ndlt_core(*tcomps), -1)
     d = np.abs(fro(to_np(ht).reshape(-1, 3, 3))
                - fro(np.asarray(hj).reshape(-1, 3, 3))).max(axis=(1, 2))
-    assert d.max() <= 1e-3 and np.median(d) <= 5e-6, (d.max(), np.median(d))
+    assert d.max() <= 1e-4 and np.median(d) <= 1e-6, (d.max(), np.median(d))
 
 
 @pytest.mark.parametrize("name", ["affine_3pt_h", "affine_3pt",

@@ -3,9 +3,9 @@ eigensolvers, against the JAX package on one seeded numpy input.
 
 Each port core (``sks_tpu_torch.ops.*_core``) is the eager op, the plain
 version of its CUDA kernel and the specification of the kernel's body.  Here
-it is held against the same JAX core, jitted on the CPU; the kernels are held
-against these plain versions on the card (tests/test_torch_cuda.py,
-chip_smoke.py), where they agree bit for bit.
+it is held against the same JAX core, jitted on the CPU (NDLT's op by op,
+below); the kernels are held against these plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py), where they agree bit for bit.
 
 Tolerances, after ``normalize_h('fro')``, measured at B = 256 on
 pixel-scale quads (tests/torch_parity.py::quads).  XLA on the CPU contracts
@@ -16,13 +16,15 @@ the last bits, and each solver amplifies that by its own conditioning:
   evaluated op by op in numpy float32 (no FMA) equal the port bit for bit.
 * HO (closed form and Jacobi): up to 8.4e-5 over two seeds (the 3x3
   eigensolve amplifies the FMA differences), held at 2e-4.
-* NDLT (Jacobi and inverse iteration): the 9x9 eigensolve amplifies more, up
-  to 2.0e-4 on the worst quad and 1.7e-5 at the 99th percentile: held at
-  1e-3 on the worst quad and 5e-6 on the median (measured 1.3e-6).
-
-The JAX NDLT core takes ~30 s to jit on the CPU, so it is jitted once per
-file (``jax_ndlt_invit``) and serves both the core and the K4-NDLT wrapper;
-the Jacobi form is held in tests/test_torch_ops.py, on another worker.
+* NDLT (Jacobi and inverse iteration): the JAX core takes ~50 s to jit on
+  the CPU, so it is evaluated op by op under ``jax.disable_jit()`` on JAX
+  arrays, once per file (``jax_ndlt_invit``), and serves both the core and
+  the K4-NDLT wrapper.  Op by op there is no FMA to amplify: the port
+  equals it on more than half the quads and is off by at most 1.8e-6
+  (inverse iteration) and 1.1e-5 (Jacobi, tests/test_torch_ops.py) on the
+  worst: held at 1e-4 on the worst quad and 1e-6 on the median (Jacobi's
+  90th percentile is 1.2e-6), room for an ulp of the transcendentals to
+  differ between hosts.  (Jitted, the FMAs took the worst quad to 2.0e-4.)
 """
 
 import functools
@@ -106,14 +108,16 @@ def test_straight_line_core_equals_jax_core_op_by_op(case):
 
 @pytest.fixture(scope="module")
 def jax_ndlt_invit():
-    """(src, tar, JAX ndlt_core(eig='invit')) at B = 256: jitted once."""
+    """(src, tar, JAX ndlt_core(eig='invit')) at B = 256, op by op."""
     src, tar = quads(22, B)
-    return src, tar, _jax_core("ndlt", "ndlt_core", {"eig": "invit"}, src, tar)
+    with jax.disable_jit():
+        return src, tar, _jax_core("ndlt", "ndlt_core", {"eig": "invit"},
+                                   jnp.asarray(src), jnp.asarray(tar))
 
 
 def _assert_ndlt_close(ht, hj):
     d = np.abs(fro(ht) - fro(hj)).max(axis=(1, 2))
-    assert d.max() <= 1e-3 and np.median(d) <= 5e-6, (d.max(), np.median(d))
+    assert d.max() <= 1e-4 and np.median(d) <= 1e-6, (d.max(), np.median(d))
 
 
 def test_ndlt_core_invit_matches_jax(jax_ndlt_invit):
@@ -124,7 +128,7 @@ def test_ndlt_core_invit_matches_jax(jax_ndlt_invit):
 
 def test_k4_ndlt_plain_matches_jax_core(jax_ndlt_invit):
     """The K4-NDLT wrapper on CPU tensors (its plain version) against the JAX
-    package's kernel body, jitted (its Pallas kernel's interpret-mode tests
+    package's kernel body, op by op (its Pallas kernel's interpret-mode tests
     are marked slow in tests/test_kernels.py)."""
     src, tar, hj = jax_ndlt_invit
     s, t = to_soa(T(src)), to_soa(T(tar))
